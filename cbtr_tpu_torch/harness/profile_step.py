@@ -1,0 +1,220 @@
+"""Stage profile of the robot-lens render and train step.
+
+Where the time of one forward render and one SGD step goes, at the
+headline shape by default (robot.stl, 450 patches, res x res collimated
+rays, 128 x 128 image, zero target):
+
+* per stage, summed over its calls in one forward: the device span (CUDA
+  events recorded around each call) and the host time to issue it (host
+  clock, no synchronisation), mean over --runs forwards;
+* the forward with grad and the backward alone (CUDA events, median of
+  --runs), and the step's peak device memory;
+* torch.profiler over one forward and one step: device ops run and the
+  device's busy time (the union of their intervals), set against the
+  unprofiled wall time;
+* the fraction of (tile x block) pairs K1's lists keep.
+
+    python -m cbtr_tpu_torch.harness.profile_step [--res 512] [--runs 5]
+        [--out profile.json]
+
+On a CPU (for debugging at a small --res) only the host times are taken.
+"""
+from __future__ import annotations
+
+import argparse
+import contextlib
+import json
+import statistics
+import sys
+import time
+
+import torch
+
+from ..models import lens_model, robot_lens_scene
+from ..ops import cuda_sweep as cs
+from ..ops import intersect as ix
+from ..render import render as rd
+
+# (label, module, attribute): each is called through its module's global,
+# so wrapping the attribute wraps every call of the path
+STAGES = (
+    ("trace_through_lens", rd, "trace_through_lens"),
+    ("recompute_winner", ix, "recompute_winner"),
+    ("winner_search", ix, "_winner_chunk"),
+    ("k1_tables", cs, "prepare_inputs"),
+    ("k1_launch", cs, "launch"),
+    ("screen_hits", rd, "screen_hits"),
+    ("splat_bilinear", rd, "splat_bilinear"),
+)
+
+
+@contextlib.contextmanager
+def stage_spans(cuda: bool):
+    """Wrap every stage; yields {label: [([start, end] CUDA events or None,
+    host seconds) per call]}."""
+    spans = {label: [] for label, _, _ in STAGES}
+    saved = []
+
+    def wrap(label, fn):
+        def timed(*args, **kwargs):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)] if cuda else None
+            if cuda:
+                ev[0].record()
+            t = time.perf_counter()
+            out = fn(*args, **kwargs)
+            host = time.perf_counter() - t
+            if cuda:
+                ev[1].record()
+            spans[label].append((ev, host))
+            return out
+        return timed
+
+    for label, mod, attr in STAGES:
+        saved.append((mod, attr, getattr(mod, attr)))
+        setattr(mod, attr, wrap(label, getattr(mod, attr)))
+    try:
+        yield spans
+    finally:
+        for mod, attr, fn in saved:
+            setattr(mod, attr, fn)
+
+
+def _sync(cuda: bool):
+    if cuda:
+        torch.cuda.synchronize()
+
+
+def _median_ms(fn, cuda: bool, runs: int) -> float:
+    times = []
+    for _ in range(runs):
+        _sync(cuda)
+        if cuda:
+            t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            t0.record()
+            fn()
+            t1.record()
+            torch.cuda.synchronize()
+            times.append(t0.elapsed_time(t1))
+        else:
+            t = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t) * 1e3)
+    return statistics.median(times)
+
+
+def _busy(fn, cuda: bool) -> dict:
+    """Device ops and busy ms of one call under torch.profiler."""
+    if not cuda:
+        return {"device_ops": None, "busy_ms": None}
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ranges = sorted(
+        (e.time_range.start, e.time_range.end) for e in prof.events()
+        if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy, end = 0.0, float("-inf")
+    for a, b in ranges:            # union of the kernels' intervals, in us
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return {"device_ops": len(ranges), "busy_ms": busy / 1e3 if ranges else None}
+
+
+def run_profile(res: int = 512, runs: int = 5) -> dict:
+    cuda = torch.cuda.is_available()
+    dev = torch.device("cuda", 0) if cuda else torch.device("cpu")
+    if cuda:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    scene = robot_lens_scene(res=res, device=dev)
+    patches, start, direction = scene.patches, scene.start, scene.direction
+    target = torch.zeros((128, 128), dtype=torch.float32, device=dev)
+    params = lens_model.params_from_scene(scene)
+    # step size 0: every step runs on the same lens, so every run is the same work
+    step = lens_model.make_train_step(scene.screen_plane, target, learning_rate=0.0)
+
+    def forward():
+        with torch.no_grad():
+            return rd.render_lens_image(patches, scene.refractive_index, start,
+                                        direction, scene.screen_plane, resolution=128)
+
+    def loss():
+        return lens_model.lens_loss(params, start, direction, scene.screen_plane, target)
+
+    forward(), step(params, start, direction)          # warm-up (and the build)
+    _sync(cuda)
+
+    per_run = []
+    for _ in range(runs):
+        with stage_spans(cuda) as spans:
+            forward()
+        _sync(cuda)
+        per_run.append({
+            label: (sum(ev[0].elapsed_time(ev[1]) for ev, _ in calls) if cuda else None,
+                    sum(host for _, host in calls) * 1e3, len(calls))
+            for label, calls in spans.items()})
+    stages = {}
+    for label, _, _ in STAGES:
+        dev_ms = [r[label][0] for r in per_run]
+        stages[label] = {
+            "calls": per_run[0][label][2],
+            "device_ms": statistics.mean(dev_ms) if cuda else None,
+            "host_ms": statistics.mean(r[label][1] for r in per_run),
+        }
+
+    forward_ms = _median_ms(forward, cuda, runs)
+    step_ms = _median_ms(lambda: step(params, start, direction), cuda, runs)
+    fwd_grad, bwd = [], []
+    for _ in range(runs):
+        params.zero_grad(set_to_none=True)
+        held = {}
+        fwd_grad.append(_median_ms(lambda: held.update(loss=loss()), cuda, 1))
+        bwd.append(_median_ms(lambda: held["loss"].backward(), cuda, 1))
+    peak_gib = None
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+        step(params, start, direction)
+        torch.cuda.synchronize()
+        peak_gib = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+
+    inputs = cs.prepare_inputs(patches, start, direction)
+    listed = float(inputs.counts.sum()) / (inputs.counts.numel() * inputs.lists.shape[0])
+    fwd_busy = _busy(forward, cuda)
+    step_busy = _busy(lambda: step(params, start, direction), cuda)
+    share = (lambda b, w: b / w if b is not None else None)
+    return {
+        "device": torch.cuda.get_device_name(0) if cuda else "cpu",
+        "rays": int(start.shape[0]), "patches": patches.num_patches, "runs": runs,
+        "stages_forward": stages,
+        "forward_ms": forward_ms, "step_ms": step_ms,
+        "forward_with_grad_ms": statistics.median(fwd_grad),
+        "backward_ms": statistics.median(bwd),
+        "step_peak_gib": peak_gib,
+        "listed_fraction": listed,
+        "forward_profile": {**fwd_busy, "busy_share": share(fwd_busy["busy_ms"], forward_ms)},
+        "step_profile": {**step_busy, "busy_share": share(step_busy["busy_ms"], step_ms)},
+    }
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--res", type=int, default=512, help="ray grid side")
+    ap.add_argument("--runs", type=int, default=5)
+    ap.add_argument("--out", default="", help="also write the result here (JSON)")
+    args = ap.parse_args(argv)
+    result = run_profile(args.res, args.runs)
+    for label, s in result["stages_forward"].items():
+        dev_ms = "not measured" if s["device_ms"] is None else f"{s['device_ms']:.3f} ms"
+        print(f"{label:20s} calls {s['calls']}  device {dev_ms}  host {s['host_ms']:.3f} ms")
+    text = json.dumps(result, indent=1)
+    print(text)
+    if args.out:
+        with open(args.out, "w") as f:
+            f.write(text + "\n")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,89 @@
+"""Snell refraction at a Bezier lens surface.
+
+Counterpart of cbtr_tpu/optics/lens.py: a branch-free batched re-design of
+BezierLens::refract (reference/bezierLens.cpp:4-34).  The if/else ladder
+(miss / TIR / grazing pass-through / refraction) becomes masks over a ray
+batch; a candidate refraction survives only if the inside/outside
+transition matches what the caller expects (reference/README.md:155).
+
+Status codes follow the reference enum (reference/bezierLens.h:7-11).
+"""
+from __future__ import annotations
+
+import torch
+
+from .. import geom
+from ..config import DEFAULT as CFG
+from ..ops.intersect import WHAT_INTERSECT, intersect_rays
+
+REFRACT_NONE = 0
+REFRACT_INSIDE = 1
+REFRACT_OUTSIDE = 2
+
+
+def refract_rays(patches, refractive_index, start, direction, expected,
+                 chunk_size: int = 0, backend: str = "auto"):
+    """Refract a ray batch at the lens surface.
+
+    expected: int (REFRACT_INSIDE or REFRACT_OUTSIDE) or [...] i32 tensor.
+    Returns (new_start [...,3], new_direction [...,3], status [...] i32).
+    Rays whose status is REFRACT_NONE are dead (miss / TIR / unexpected
+    transition); their outputs carry the inputs unchanged so downstream
+    passes stay finite.
+    """
+    hit = intersect_rays(patches, start, direction, chunk_size=chunk_size,
+                         backend=backend)
+    ok = hit.what == WHAT_INTERSECT
+
+    cos_inc = hit.cos_incidence
+    # ray from outside has cos < 0 (normal points outwards)
+    going_in = cos_inc < 0.0
+    status = torch.where(going_in, REFRACT_INSIDE, REFRACT_OUTSIDE)
+    ri = torch.as_tensor(refractive_index, dtype=torch.float32,
+                         device=cos_inc.device)
+    eff = torch.where(going_in, 1.0 / ri, ri)
+    sin2 = eff * eff * (1.0 - cos_inc * cos_inc)
+
+    tir = sin2 >= CFG.max_sin2_refraction
+    grazing = sin2 <= CFG.min_sin2_refraction
+
+    normal = hit.normal * torch.where(going_in, 1.0, -1.0)[..., None]
+    cos1 = cos_inc.abs()
+    # TIR lanes would evaluate sqrt at 0 whose backward is inf (a 0
+    # cotangent times inf is NaN in the refractive-index gradient); they are
+    # masked out below, so substitute a tame argument.  Surviving lanes have
+    # 1 - sin2 >= 1 - max_sin2 = 0.01, far above the floor.
+    sin2_live = torch.where(tir, 0.0, sin2)
+    cos2 = torch.sqrt((1.0 - sin2_live).clamp_min(1e-6))
+    bent = geom.safe_normalize(
+        direction * eff[..., None] + normal * (eff * cos1 - cos2)[..., None]
+    )
+    new_dir = torch.where(grazing[..., None], direction, bent)
+
+    status = torch.where(ok & ~tir, status, REFRACT_NONE)
+    expected = torch.as_tensor(expected, dtype=status.dtype, device=status.device)
+    status = torch.where(status == expected, status, REFRACT_NONE)
+
+    alive = (status != REFRACT_NONE)[..., None]
+    new_start = torch.where(alive, hit.point, start)
+    new_dir = torch.where(alive, new_dir, direction)
+    return new_start, new_dir, status.to(torch.int32)
+
+
+def trace_through_lens(patches, refractive_index, start, direction,
+                       chunk_size: int = 0, backend: str = "auto"):
+    """Full lens pass: refract entering (expect inside), then exiting
+    (expect outside) — the per-ray state machine of the reference's
+    illumination loop (reference/test.cpp:376-394).
+
+    Returns (start, direction, alive_mask, entry_point, exit_point).
+    """
+    s1, d1, st1 = refract_rays(
+        patches, refractive_index, start, direction, REFRACT_INSIDE,
+        chunk_size, backend,
+    )
+    s2, d2, st2 = refract_rays(
+        patches, refractive_index, s1, d1, REFRACT_OUTSIDE, chunk_size, backend,
+    )
+    alive = (st1 == REFRACT_INSIDE) & (st2 == REFRACT_OUTSIDE)
+    return s2, d2, alive, s1, s2

@@ -1,0 +1,60 @@
+"""The PyTorch port imports without jax, and without nvcc.
+
+The machine with the GPU has no jax, and the CUDA kernel is built at first
+use, not at import: importing every module of the port must work on a
+CPU-only machine with neither.
+"""
+import os
+import subprocess
+import sys
+
+_SCRIPT = r"""
+import os, shutil, sys
+os.environ["PATH"] = ""          # no nvcc (nor anything else) on PATH
+import cbtr_tpu_torch
+import cbtr_tpu_torch.ops.cuda_sweep as cs
+import cbtr_tpu_torch.models.lens_model
+import cbtr_tpu_torch.models.scenes
+import cbtr_tpu_torch.convert
+import cbtr_tpu_torch.render.render
+assert shutil.which("nvcc") is None
+assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
+assert not any(m == "cbtr_tpu" or m.startswith("cbtr_tpu.") for m in sys.modules)
+assert cs._lib is None and cs.sweep_select.launches == 0
+print("IMPORT_OK")
+"""
+
+
+def test_port_imports_without_jax_or_nvcc():
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run(
+        [sys.executable, "-c", _SCRIPT], capture_output=True, text=True,
+        timeout=120, cwd=repo,
+    )
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "IMPORT_OK" in proc.stdout
+
+
+def test_cpu_wrapper_runs_the_twin_without_launching():
+    """On CPU tensors the kernel wrapper computes the plain twin; it never
+    builds or launches the kernel (and its launch count stays put)."""
+    import torch
+
+    from cbtr_tpu_torch.mesh.core import make_unit_sphere
+    from cbtr_tpu_torch.harness import preprocess
+    from cbtr_tpu_torch.bezier import build_from_trimesh
+    from cbtr_tpu_torch.ops import cuda_sweep as cs
+
+    patches = build_from_trimesh(preprocess(make_unit_sphere(7, 3)))
+    rng = torch.Generator().manual_seed(0)
+    start = torch.randn(40, 3, generator=rng) * 0.1 - torch.tensor([3.0, 0, 0])
+    direction = torch.nn.functional.normalize(
+        torch.randn(40, 3, generator=rng) * 0.4 - start, dim=-1)
+    before = cs.sweep_select.launches
+    got = cs.sweep_select(patches, start, direction)
+    want = cs.sweep_select_reference(patches, start, direction)
+    assert cs.sweep_select.launches == before
+    assert cs._lib is None
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert got[0].sum() >= 10

@@ -1,0 +1,35 @@
+"""The stage profiler of the render and train step, at a tiny size on the CPU.
+
+On the CPU it takes host times only; every stage of the path must be seen
+with its number of calls per forward, and the wrappers must come off again.
+"""
+import torch
+
+from cbtr_tpu_torch.harness import profile_step
+from cbtr_tpu_torch.ops import cuda_sweep as cs
+from cbtr_tpu_torch.ops import intersect as ix
+from cbtr_tpu_torch.render import render as rd
+
+torch.set_num_threads(2)
+
+
+def test_profile_step_sees_every_stage_on_cpu():
+    originals = [getattr(mod, attr) for _, mod, attr in profile_step.STAGES]
+    result = profile_step.run_profile(res=16, runs=1)
+    assert [getattr(mod, attr) for _, mod, attr in profile_step.STAGES] == originals
+    assert (result["rays"], result["patches"]) == (256, 450)
+    calls = {label: s["calls"] for label, s in result["stages_forward"].items()}
+    # two refractions, each one winner search and one recompute; CPU tensors
+    # run the kernel's plain twin, so K1's tables and launch are not reached
+    assert calls == {"trace_through_lens": 1, "recompute_winner": 2,
+                     "winner_search": 2, "k1_tables": 0, "k1_launch": 0,
+                     "screen_hits": 1, "splat_bilinear": 1}
+    assert all(s["device_ms"] is None for s in result["stages_forward"].values())
+    assert result["step_peak_gib"] is None
+    assert result["forward_profile"]["busy_share"] is None
+    for key in ("forward_ms", "step_ms", "forward_with_grad_ms", "backward_ms"):
+        assert result[key] > 0.0, key
+    assert 0.0 < result["listed_fraction"] <= 1.0
+    assert rd.trace_through_lens.__module__ == "cbtr_tpu_torch.optics.lens"
+    assert ix.recompute_winner.__name__ == "recompute_winner"
+    assert cs.launch.__name__ == "launch"
