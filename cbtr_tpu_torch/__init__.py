@@ -5,9 +5,9 @@ stays in the repository as the reference the port is tested against: mesh
 preprocessing (NumPy), C1 cubic Bezier-triangle surfaces (Clough-Tocher),
 Newton-style ray/surface intersection and Snell refraction through a lens,
 as differentiable PyTorch tensor code.  The O(rays x patches) winner search
-runs in a hand-written CUDA kernel for Hopper (csrc/sweep_select.cu) when
-the tensors lie on the GPU, and in its plain PyTorch twin when they lie on
-the CPU.
+runs in a hand-written CUDA kernel for Hopper when the tensors lie on the
+GPU (csrc/sweep_select.cu up to 1024 patches, csrc/winner.cu above), and in
+its plain PyTorch twin when they lie on the CPU.
 
 This package imports torch and numpy and never jax.
 """

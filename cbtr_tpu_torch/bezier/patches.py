@@ -139,6 +139,15 @@ def interpolate(control_points, bary):
     return out
 
 
+def interpolate_linear(control_points, bary):
+    """Barycentric mix of the 3 corner control points (300, 030, 003)
+    (reference/bezierTriangle.cpp:99-103).  cp [...,10,3], bary [...,3]."""
+    out = bary[..., 0:1] * control_points[..., 0, :]
+    for k in (1, 2):
+        out = out + bary[..., k:k + 1] * control_points[..., k, :]
+    return out
+
+
 def patch_normal(control_points, deriv_b, bary):
     """Unit surface normal via two directional derivatives
     (reference/bezierTriangle.cpp:197-233).

@@ -54,6 +54,10 @@ class TriMesh:
         sides = self.tris - np.roll(self.tris, -1, axis=1)
         return float(np.linalg.norm(sides, axis=-1).min())
 
+    def unique_vertices(self) -> np.ndarray:
+        """Set of distinct (welded) vertices (Mesh::getVertices, mesh.cpp:95-103)."""
+        return np.unique(self.tris.reshape(-1, 3), axis=0)
+
     # -- vertex welding (mesh.cpp:14-91) ------------------------------------
     def standardize_vertices(self) -> None:
         """Weld vertices closer than 0.2x the smallest side to one point.
@@ -420,3 +424,16 @@ def make_ellipsoid(sectors: int, belts: int, size) -> TriMesh:
 def make_unit_sphere(sectors: int, belts: int) -> TriMesh:
     """mesh.h:100."""
     return make_ellipsoid(sectors, belts, (1.0, 1.0, 1.0))
+
+
+def make_dimpled_solid(sectors: int, belts: int, size) -> TriMesh:
+    """Sphere + gaussian dimple envelope, the intersection-test fixture
+    (test.cpp:241-245)."""
+
+    def func(x: float) -> float:
+        x2 = x * x
+        return math.sqrt(max(1.0 - x2, 0.0)) + 0.7 * (
+            math.exp(-4.0) - math.exp(-4.0 * x2)
+        )
+
+    return make_solid_of_revolution(sectors, belts, func, size)

@@ -1,5 +1,11 @@
 """Ready-made lens scenes and the differentiable lens model."""
-from .scenes import LensScene, robot_lens_scene, sphere_lens_scene  # noqa: F401
+from .scenes import (  # noqa: F401
+    LensScene,
+    dimpled_lens_scene,
+    ellipsoid_lens_scene,
+    robot_lens_scene,
+    sphere_lens_scene,
+)
 from .lens_model import (  # noqa: F401
     LensParams,
     lens_forward,

@@ -1,5 +1,5 @@
-"""Compute ops: ray-surface intersection (CUDA kernel on the GPU, plain
-PyTorch twin on the CPU)."""
+"""Compute ops: ray-surface intersection (CUDA kernels K1 and K2 on the GPU,
+their plain PyTorch twins on the CPU)."""
 from .intersect import (  # noqa: F401
     RayHit,
     WHAT_FOLLOW_SIDE0,

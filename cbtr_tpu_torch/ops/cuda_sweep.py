@@ -21,8 +21,9 @@ granularity, as on the TPU:
 
 `sweep_select` launches csrc/sweep_select.cu for CUDA tensors and calls
 `sweep_select_reference` for CPU tensors; it never falls back from one to
-the other.  The kernel is built with nvcc at first use (no import-time
-work: importing this module needs no nvcc).
+the other.  The kernels are built with nvcc at first use (no import-time
+work: importing this module needs no nvcc); `build_library` and
+`load_library` serve every kernel of the port (K2 in cuda_winner.py too).
 """
 from __future__ import annotations
 
@@ -55,12 +56,16 @@ BLOCK_P = 16       # patches per candidate block (FUSED_BLOCK_P)
 _PATCH_PAD = 128   # patch-table padding (every block size divides it)
 
 # largest patch count of the fused path, as in the JAX package; above it
-# the reference runs the winner kernel K2 (`_winner_kernel`), not ported yet
+# intersect_rays runs the winner kernel K2 (cuda_winner.py)
 _FUSED_MAX_P = 1024
 
 # ray chunk of the plain twin: bounds its [chunk, P] working set (a few GB
 # at P = 450 with every Newton temporary alive)
 _REFERENCE_CHUNK_R = 16384
+
+# (ray, block) pairs per chunk of `tile_block_lists`: bounds its dense
+# [rays, B, 3] slab tests (one chunk at 512^2 rays x 32 blocks)
+_LIST_CHUNK_PAIRS = 1 << 23
 
 _BIG_F = ix._BIG
 
@@ -142,7 +147,8 @@ def tile_block_lists(patches: BezierPatches, rays_t):
     rays_t [8, R_pad] (rows sx, sy, sz, dx, dy, dz, 0, 0).  Returns
     (counts [T] i32, lists [B, T] i32): lists[:counts[t], t] are the ids of
     the blocks whose merged sphere AND union-of-patch-AABBs are hit by at
-    least one ray of tile t, ascending.  A dense [R_pad, B] test, then a
+    least one ray of tile t, ascending.  A dense [rays, B] test in chunks of
+    whole tiles (about _LIST_CHUNK_PAIRS ray-block pairs each), then a
     stable sort."""
     center, radius = patch_spheres(patches)
     P = patches.num_patches
@@ -152,20 +158,25 @@ def tile_block_lists(patches: BezierPatches, rays_t):
     lo, hi = _pad_rows(lo, P_pad), _pad_rows(hi, P_pad)
 
     c, r = _block_spheres_cr(center, radius)            # [B,3], [B]
-    s = rays_t[0:3, :].T                                # [R_pad, 3]
-    d = rays_t[3:6, :].T
-    rel = c[None, :, :] - s[:, None, :]                 # [R_pad, B, 3]
-    t_ca = (rel[..., 0] * d[:, None, 0] + rel[..., 1] * d[:, None, 1]
-            + rel[..., 2] * d[:, None, 2])
-    rel2 = rel[..., 0] * rel[..., 0] + rel[..., 1] * rel[..., 1] + rel[..., 2] * rel[..., 2]
-    r2 = (r * r)[None, :]
-    hit = ((rel2 - t_ca * t_ca) <= r2) & ((t_ca >= 0.0) | (rel2 <= r2))
-    hit = hit & (r >= 0.0)[None, :]                     # all-padding blocks
+    B = c.shape[0]
     real = (radius > 0.0).reshape(-1, BLOCK_P)          # [B, BLOCK_P]
     lob = torch.where(real[..., None], lo.reshape(-1, BLOCK_P, 3), torch.inf).amin(dim=1)
     hib = torch.where(real[..., None], hi.reshape(-1, BLOCK_P, 3), -torch.inf).amax(dim=1)
-    hit = hit & _ray_aabb_hit(lob, hib, s, d)
-    tile_hit = hit.reshape(-1, TILE_R, hit.shape[-1]).any(dim=1)    # [T,B]
+    r2 = (r * r)[None, :]
+    chunk = max(1, _LIST_CHUNK_PAIRS // (B * TILE_R)) * TILE_R
+    tile_hit = []
+    for r0 in range(0, rays_t.shape[1], chunk):
+        s = rays_t[0:3, r0:r0 + chunk].T                # [rc, 3]
+        d = rays_t[3:6, r0:r0 + chunk].T
+        rel = c[None, :, :] - s[:, None, :]             # [rc, B, 3]
+        t_ca = (rel[..., 0] * d[:, None, 0] + rel[..., 1] * d[:, None, 1]
+                + rel[..., 2] * d[:, None, 2])
+        rel2 = rel[..., 0] * rel[..., 0] + rel[..., 1] * rel[..., 1] + rel[..., 2] * rel[..., 2]
+        hit = ((rel2 - t_ca * t_ca) <= r2) & ((t_ca >= 0.0) | (rel2 <= r2))
+        hit = hit & (r >= 0.0)[None, :]                 # all-padding blocks
+        hit = hit & _ray_aabb_hit(lob, hib, s, d)
+        tile_hit.append(hit.reshape(-1, TILE_R, B).any(dim=1))      # [tc,B]
+    tile_hit = torch.cat(tile_hit)
     counts = tile_hit.sum(dim=-1).to(torch.int32)
     lists = torch.argsort((~tile_hit).to(torch.uint8), dim=-1, stable=True)
     return counts, lists.T.contiguous().to(torch.int32)
@@ -205,9 +216,9 @@ def pad_rays(start, direction) -> torch.Tensor:
     return rays.T.contiguous()
 
 
-def _sphere_hit_pairs(patch_t, rays_t):
+def sphere_hit_pairs(patch_t, rays_t):
     """Per-(ray, patch) bounding-sphere test [R, P_pad] over the packed table
-    (the expression csrc/sweep_select.cu::sphere_hit evaluates)."""
+    (the expression csrc/candidate.cuh::sphere_hit evaluates)."""
     bc = patch_t[:, _ROW_BSPHERE:_ROW_BSPHERE + 4]
     sx, sy, sz = (rays_t[k, :, None] for k in range(3))
     dx, dy, dz = (rays_t[k, :, None] for k in range(3, 6))
@@ -249,28 +260,40 @@ def sweep_select_reference(patches: BezierPatches, start, direction,
 
     rays_t = pad_rays(start, direction)
     patch_t = pack_patch_table(patches)
-    P_pad = patch_t.shape[0]
+    listed = listed_blocks(*tile_block_lists(patches, rays_t), patch_t.shape[0])
+
+    tiles_per_chunk = _REFERENCE_CHUNK_R // TILE_R
+    outs = []
+    for t0 in range(0, listed.shape[0], tiles_per_chunk):
+        rt = rays_t[:, t0 * TILE_R:(t0 + tiles_per_chunk) * TILE_R]
+        keep = evaluated_pairs(listed[t0:t0 + tiles_per_chunk],
+                               sphere_hit_pairs(patch_t, rt))[:, :P]
+        code, dist = ix.sweep_codes(patches, rt[0:3].T, rt[3:6].T)
+        code = torch.where(keep, code, ix.WHAT_NONE)
+        outs.append(ix.select_candidates(code, dist, patches.neighbours))
+    return tuple(torch.cat(o)[:R] for o in zip(*outs))
+
+
+def listed_blocks(counts, lists, P_pad: int):
+    """[T, B] bool: block b is on tile t's list (from `tile_block_lists`)."""
     B = P_pad // BLOCK_P
-    counts, lists = tile_block_lists(patches, rays_t)
     T = counts.shape[0]
     slot = torch.arange(B, device=counts.device)[:, None]          # [B,1]
     listed = torch.zeros((T, B), dtype=torch.bool, device=counts.device)
     listed[torch.arange(T, device=counts.device).expand(B, T)[slot < counts],
            lists.long()[slot < counts]] = True
+    return listed
 
-    tiles_per_chunk = _REFERENCE_CHUNK_R // TILE_R
-    outs = []
-    for t0 in range(0, T, tiles_per_chunk):
-        t1 = min(t0 + tiles_per_chunk, T)
-        rt = rays_t[:, t0 * TILE_R:t1 * TILE_R]
-        gated = _sphere_hit_pairs(patch_t, rt).reshape(
-            t1 - t0, TILE_R, B, BLOCK_P).any(dim=3).any(dim=1)      # [tc,B]
-        keep = (listed[t0:t1] & gated)[:, None, :, None].expand(
-            t1 - t0, TILE_R, B, BLOCK_P).reshape(-1, P_pad)[:, :P]
-        code, dist = ix.sweep_codes(patches, rt[0:3].T, rt[3:6].T)
-        code = torch.where(keep, code, ix.WHAT_NONE)
-        outs.append(ix.select_candidates(code, dist, patches.neighbours))
-    return tuple(torch.cat(o)[:R] for o in zip(*outs))
+
+def evaluated_pairs(listed, sphere):
+    """The (ray, patch) pairs a kernel evaluates: those of blocks listed for
+    the ray's tile AND gated, i.e. some (patch, ray) pair of block x tile
+    passes the sphere test.  listed [tc, B], sphere [tc*TILE_R, P_pad]
+    (`sphere_hit_pairs`) -> [tc*TILE_R, P_pad] bool."""
+    tc, B = listed.shape
+    gated = sphere.reshape(tc, TILE_R, B, BLOCK_P).any(dim=3).any(dim=1)    # [tc,B]
+    return (listed & gated)[:, None, :, None].expand(
+        tc, TILE_R, B, BLOCK_P).reshape(tc * TILE_R, B * BLOCK_P)
 
 
 # ---------------------------------------------------------------------------
@@ -280,11 +303,10 @@ def sweep_select_reference(patches: BezierPatches, start, direction,
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "cbtr_tpu_torch")
-_LIB_NAME = "libcbtr_tpu_torch_kernels.so"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    # no FMA contraction, IEEE sqrt and division: the kernel's candidate
-    # arithmetic stays bit-identical to the plain twin's separate torch ops
+    # no FMA contraction, IEEE sqrt and division: the kernels' candidate
+    # arithmetic stays bit-identical to the plain twins' separate torch ops
     "-fmad=false", "-prec-sqrt=true", "-prec-div=true",
     "-shared", "-Xcompiler", "-fPIC",
 ]
@@ -304,42 +326,66 @@ def _nvcc() -> str:
                        "at first use on a machine with the CUDA toolkit")
 
 
+def library_path(stem: str) -> str:
+    """The shared library built from csrc/<stem>.cu."""
+    return os.path.join(BUILD_DIR, f"libcbtr_{stem}.so")
+
+
 def build_library() -> str:
-    """Compile csrc/*.cu with NVCC_FLAGS into the build directory when the
-    library is missing or older than a source.  Returns nvcc's output (empty
-    when the library was up to date)."""
+    """Compile each csrc/*.cu with NVCC_FLAGS into a library of its own
+    (`library_path`), where it is missing or older than its source or a
+    header: one nvcc per source, all started together.  Returns nvcc's
+    output (empty when every library was up to date); raises if any build
+    fails."""
     sources = sorted(glob.glob(os.path.join(_CSRC_DIR, "*.cu")))
-    headers = glob.glob(os.path.join(_CSRC_DIR, "*.cuh"))
-    lib_path = os.path.join(BUILD_DIR, _LIB_NAME)
-    newest = max(os.path.getmtime(f) for f in sources + headers)
-    if os.path.exists(lib_path) and os.path.getmtime(lib_path) >= newest:
-        return ""
+    newest_header = max((os.path.getmtime(f) for f in
+                         glob.glob(os.path.join(_CSRC_DIR, "*.cuh"))), default=0.0)
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{lib_path}.{os.getpid()}.tmp"
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources],
-        capture_output=True, text=True,
-    )
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, lib_path)
-    return proc.stdout + proc.stderr
+    jobs = []
+    for src in sources:
+        lib_path = library_path(os.path.splitext(os.path.basename(src))[0])
+        newest = max(os.path.getmtime(src), newest_header)
+        if os.path.exists(lib_path) and os.path.getmtime(lib_path) >= newest:
+            continue
+        tmp = f"{lib_path}.{os.getpid()}.tmp"
+        proc = subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
+                                stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                text=True)
+        jobs.append((src, lib_path, tmp, proc))
+    logs, failed = [], []
+    for src, lib_path, tmp, proc in jobs:
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed on {src} ({proc.returncode}):\n{err}")
+        else:
+            os.replace(tmp, lib_path)
+            logs.append(out + err)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return "".join(logs)
+
+
+def load_library(stem: str, argtypes) -> ctypes.CDLL:
+    """Build the kernels (`build_library`) and load csrc/<stem>.cu's library,
+    declaring its entry point cbtr_<stem>(*argtypes) -> int (a CUDA error
+    code) and cbtr_cuda_error_string."""
+    build_library()
+    lib = ctypes.CDLL(library_path(stem))
+    entry = getattr(lib, f"cbtr_{stem}")
+    entry.restype = ctypes.c_int
+    entry.argtypes = argtypes
+    lib.cbtr_cuda_error_string.restype = ctypes.c_char_p
+    lib.cbtr_cuda_error_string.argtypes = [ctypes.c_int]
+    return lib
 
 
 def _library() -> ctypes.CDLL:
     global _lib
     with _lock:
         if _lib is None:
-            build_library()
-            lib = ctypes.CDLL(os.path.join(BUILD_DIR, _LIB_NAME))
             vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-            lib.cbtr_sweep_select.restype = ci
-            lib.cbtr_sweep_select.argtypes = (
-                [vp] * 7 + [ci] * 5 + [cf] * 4 + [ci, vp]
-            )
-            lib.cbtr_cuda_error_string.restype = ctypes.c_char_p
-            lib.cbtr_cuda_error_string.argtypes = [ci]
-            _lib = lib
+            _lib = load_library("sweep_select",
+                                [vp] * 7 + [ci] * 5 + [cf] * 4 + [ci, vp])
         return _lib
 
 
@@ -378,13 +424,16 @@ def prepare_inputs(patches: BezierPatches, start, direction) -> KernelInputs:
     return KernelInputs(counts, lists, rays_t, patch_t, nb, P)
 
 
-def launch(inputs: KernelInputs):
-    """One launch of K1 on the current stream: (win_dist [R_pad] f32,
-    win [R_pad] i32), BIG (3.4e38) and 0 for a miss."""
+def check_inputs(inputs: KernelInputs, kernel: str):
+    """Raise unless `inputs` are tables a kernel takes: CUDA tensors of the
+    shapes, types and layout `prepare_inputs` gives.  Returns (T, P_pad)."""
     device = inputs.rays_t.device
     R_pad, P_pad = inputs.rays_t.shape[1], inputs.patch_t.shape[0]
     T, B = R_pad // TILE_R, P_pad // BLOCK_P
-    if inputs.num_patches > _FUSED_MAX_P or R_pad % TILE_R or P_pad % _PATCH_PAD:
+    if device.type != "cuda":
+        raise ValueError(f"{kernel} runs on CUDA tensors, got {device}; on the "
+                         "CPU its plain twin computes the same function")
+    if R_pad % TILE_R or P_pad % _PATCH_PAD or not 0 < inputs.num_patches <= P_pad:
         raise ValueError(f"unsupported shape: P = {inputs.num_patches}, "
                          f"R_pad = {R_pad}, P_pad = {P_pad}")
     for t, name, dtype, shape in (
@@ -395,6 +444,17 @@ def launch(inputs: KernelInputs):
         (inputs.nb, "neighbours", torch.int32, (P_pad, 3)),
     ):
         _check(t, name, dtype, shape, device)
+    return T, P_pad
+
+
+def launch(inputs: KernelInputs):
+    """One launch of K1 on the current stream: (win_dist [R_pad] f32,
+    win [R_pad] i32), BIG (3.4e38) and 0 for a miss."""
+    T, P_pad = check_inputs(inputs, "K1")
+    if inputs.num_patches > _FUSED_MAX_P:
+        raise ValueError(f"K1 takes at most {_FUSED_MAX_P} patches, got "
+                         f"{inputs.num_patches}")
+    device, R_pad = inputs.rays_t.device, T * TILE_R
     dist = torch.empty(R_pad, dtype=torch.float32, device=device)
     idx = torch.empty(R_pad, dtype=torch.int32, device=device)
 
@@ -427,16 +487,10 @@ def sweep_select(patches: BezierPatches, start, direction):
     CPU tensors go to `sweep_select_reference` (cull=True); CUDA tensors
     launch csrc/sweep_select.cu.  There is no fallback between the two: a
     build or launch failure raises, and so does P > _FUSED_MAX_P on the GPU
-    (that range belongs to the winner kernel K2, not ported yet).
+    (`intersect_rays` sends that range to K2, cuda_winner.sweep_winner).
     `sweep_select.launches` counts the kernel's launches."""
     if not start.is_cuda:
         return sweep_select_reference(patches, start, direction)
-    P = patches.num_patches
-    if P > _FUSED_MAX_P:
-        raise NotImplementedError(
-            f"P = {P} > {_FUSED_MAX_P}: the GPU path for this patch count is "
-            "kernel K2 (cbtr_tpu/ops/pallas_sweep.py::_winner_kernel), which "
-            "is not ported yet")
     dist, idx = launch(prepare_inputs(patches, start, direction))
     R = start.shape[0]
     best = dist[:R]

@@ -19,7 +19,8 @@ The op runs in three stages:
    ray for point/normal/bary/cos.  Gradients flow only through this O(rays)
    stage.
 
-Stages 1+2 are `cuda_sweep.sweep_select`: a CUDA kernel for tensors on the
+Stages 1+2 are `cuda_sweep.sweep_select` (K1, P <= 1024) or
+`cuda_winner.sweep_winner` (K2, P > 1024): a CUDA kernel for tensors on the
 GPU, its plain PyTorch twin for tensors on the CPU.  `sweep_codes` and
 `select_candidates` are the staged plain form the twin is built from.
 
@@ -78,7 +79,7 @@ def _candidates_core(patches: BezierPatches, start, direction):
     (reference/bezierTriangle.cpp:127-131); the gate-ON result is the same
     candidate with ``valid &= in_dom``.
 
-    csrc/sweep_select.cu::eval_candidate evaluates the same expressions in
+    csrc/candidate.cuh::eval_candidate evaluates the same expressions in
     the same order; keep the two in step.
     """
     cp = patches.control_points
@@ -304,16 +305,19 @@ def _winner_chunk(patches: BezierPatches, start, direction, backend: str):
     """Stages 1+2 (sweep + select) for a chunk of rays: the gradient-free
     winner search.  Returns (any_hit [R] bool, win [R] i32).
 
-    backend "auto" goes through the kernel wrapper (CUDA kernel on the GPU,
-    plain twin on the CPU); "plain" forces the twin on any device."""
-    from . import cuda_sweep
+    P <= 1024 goes to K1 (cuda_sweep), P > 1024 to K2 (cuda_winner), as in
+    the JAX package.  backend "auto" goes through that kernel's wrapper
+    (the kernel on the GPU, its plain twin on the CPU); "plain" forces the
+    twin on any device."""
+    from . import cuda_sweep, cuda_winner
 
+    if patches.num_patches <= cuda_sweep._FUSED_MAX_P:
+        wrapper, twin = cuda_sweep.sweep_select, cuda_sweep.sweep_select_reference
+    else:
+        wrapper, twin = cuda_winner.sweep_winner, cuda_winner.sweep_winner_reference
     with torch.no_grad():
         p, s, d = patches.detach(), start.detach(), direction.detach()
-        if backend == "plain":
-            any_hit, win, _ = cuda_sweep.sweep_select_reference(p, s, d)
-        else:
-            any_hit, win, _ = cuda_sweep.sweep_select(p, s, d)
+        any_hit, win, _ = (twin if backend == "plain" else wrapper)(p, s, d)
     return any_hit, win
 
 

@@ -13,6 +13,10 @@ import os, shutil, sys
 os.environ["PATH"] = ""          # no nvcc (nor anything else) on PATH
 import cbtr_tpu_torch
 import cbtr_tpu_torch.ops.cuda_sweep as cs
+import cbtr_tpu_torch.ops.cuda_winner as cw
+import cbtr_tpu_torch.bezier.refine
+import cbtr_tpu_torch.bezier.tessellate
+import cbtr_tpu_torch.harness.measure
 import cbtr_tpu_torch.models.lens_model
 import cbtr_tpu_torch.models.scenes
 import cbtr_tpu_torch.convert
@@ -21,6 +25,7 @@ assert shutil.which("nvcc") is None
 assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
 assert not any(m == "cbtr_tpu" or m.startswith("cbtr_tpu.") for m in sys.modules)
 assert cs._lib is None and cs.sweep_select.launches == 0
+assert cw._lib is None and cw.sweep_winner.launches == 0
 print("IMPORT_OK")
 """
 

@@ -59,8 +59,8 @@ def _assert_topology_equal(port_mesh, jax_mesh):
                                   jax_mesh.fellow_common_side_starts)
 
 
-def _assert_no_further_from_f64(port32, jax32, port64):
-    """Leaf by leaf: max |port f32 - f64| <= max |JAX f32 - f64|."""
+def _assert_no_further_from_f64(port32, jax32, port64, factor=1.0):
+    """Leaf by leaf: max |port f32 - f64| <= factor * max |JAX f32 - f64|."""
     assert port32.num_patches == jax32.num_patches == port64.num_patches
     np.testing.assert_array_equal(port32.neighbours.numpy(),
                                   np.asarray(jax32.neighbours))
@@ -68,7 +68,7 @@ def _assert_no_further_from_f64(port32, jax32, port64):
         exact = getattr(port64, name).numpy()
         err_port = np.abs(getattr(port32, name).double().numpy() - exact).max()
         err_jax = np.abs(np.asarray(getattr(jax32, name), np.float64) - exact).max()
-        assert err_port <= err_jax, (name, err_port, err_jax)
+        assert err_port <= factor * err_jax, (name, err_port, err_jax)
 
 
 def test_sphere_preprocess_and_build_match_jax():
@@ -173,14 +173,41 @@ def test_robot_lens_scene_matches_jax(monkeypatch):
     _assert_no_further_from_f64(port.patches, ref.patches, port64.patches)
 
 
-def test_robot_refine_not_ported_raises():
-    with pytest.raises(NotImplementedError):
-        scenes.robot_lens_scene(res=16, refine=True)
-
-
-def test_robot_split_not_ported_raises():
-    with pytest.raises(NotImplementedError, match="K2"):
-        scenes.robot_lens_scene(res=16, split=2)
+@pytest.mark.parametrize("name,num_patches", [
+    ("refined", 1800), ("split2", 1800), ("ellipsoid", 450), ("dimpled", 1890)])
+def test_large_scene_matches_jax(monkeypatch, name, num_patches):
+    """The scenes above the fused path's cap, and the ellipsoid: the same
+    rays, screen plane and (refined or split) topology as the JAX package's,
+    and f32 patch tables within 8 times the JAX package's f32 distance from
+    the port's float64 build, leaf by leaf.  Both are f32 roundings of the
+    same formulas in different orders (the float64 formulas agree to 1e-9,
+    test_robot_float64_build_formulas_match_jax), and either can be the
+    closer one: the port is closer on every leaf of the refined robot and
+    the dimpled solid, up to 4.6 times further on the ellipsoid
+    (bary_inverse) and 1.003 times on split-2 (bary_inverse, an entry of
+    magnitude 7e4).  The refined robot is compared this way only because
+    both packages' own f32 builds pick the same thick faces
+    (tests/test_torch_refine.py counts 0 flips); where they differ, the
+    refined meshes differ and this test fails on the topology."""
+    monkeypatch.setenv("CBTR_NATIVE", "0")
+    make, jax_make, kw = {
+        "refined": (scenes.robot_lens_scene, jax_scenes.robot_lens_scene,
+                    dict(refine=True)),
+        "split2": (scenes.robot_lens_scene, jax_scenes.robot_lens_scene,
+                   dict(split=2)),
+        "ellipsoid": (scenes.ellipsoid_lens_scene, jax_scenes.ellipsoid_lens_scene, {}),
+        "dimpled": (scenes.dimpled_lens_scene, jax_scenes.dimpled_lens_scene, {}),
+    }[name]
+    port = make(res=16, **kw)
+    port64 = make(res=16, dtype=torch.float64, **kw)
+    ref = jax_make(res=16, **kw)
+    assert port.patches.num_patches == ref.patches.num_patches == num_patches
+    np.testing.assert_array_equal(port.start.numpy(), np.asarray(ref.start))
+    np.testing.assert_array_equal(port.direction.numpy(), np.asarray(ref.direction))
+    np.testing.assert_array_equal(port.screen_plane.numpy(), np.asarray(ref.screen_plane))
+    np.testing.assert_array_equal(port.fellow, ref.fellow)
+    np.testing.assert_array_equal(port.fellow_starts, ref.fellow_starts)
+    _assert_no_further_from_f64(port.patches, ref.patches, port64.patches, factor=8.0)
 
 
 def test_packed_table_round_trip():
