@@ -7,7 +7,9 @@ Newton-style ray/surface intersection and Snell refraction through a lens,
 as differentiable PyTorch tensor code.  The O(rays x patches) winner search
 runs in a hand-written CUDA kernel for Hopper when the tensors lie on the
 GPU (csrc/sweep_select.cu up to 1024 patches, csrc/winner.cu above), and in
-its plain PyTorch twin when they lie on the CPU.
+its plain PyTorch twin when they lie on the CPU; the staged sweep
+(csrc/sweep_codes.cu) and the FMA-peak microbenchmark (csrc/fma_peak.cu)
+serve the benchmark, `python -m cbtr_tpu_torch.bench`.
 
 This package imports torch and numpy and never jax.
 """

@@ -1,0 +1,183 @@
+"""Per-pair sweep codes on the GPU: the CUDA kernel K3, its wrapper and its
+plain PyTorch twin.
+
+Counterpart of the staged sweep of cbtr_tpu/ops/pallas_sweep.py
+(`_sweep_kernel_resident`, `_sweep_call`, `sweep_codes_pallas`): for every
+(ray, patch) pair the gate-OFF candidate code ``what | (in_domain << 3)``
+and the along-ray distance, as (code [R, P] i32, dist [R, P] f32).  The
+staged pipeline feeds them to `intersect.select_candidates`; the bench
+times it as its sweep stage and checks the recompute against it.
+
+The candidate set is the JAX kernel's, at its block size of 32 patches
+(`pallas_sweep.BLOCK_P`; K1 and K2 use 16):
+
+* `cuda_sweep.tile_block_lists(block_p=32)` lists, per 128-ray tile, the
+  blocks whose merged sphere AND union AABB some ray of the tile hits;
+* a listed block is evaluated for all 128 rays when any (patch, ray) pair
+  of block x tile passes the per-patch sphere test;
+* every other pair keeps code WHAT_NONE and dist 0.0, the values the TPU
+  kernel writes before its block loop (`pallas_sweep.py:148-149`).
+
+The TPU entry point chunks patches at `_RESIDENT_MAX_P` = 8192 rows (VMEM)
+and rays at `_SMEM_LIST_BUDGET` (SMEM for the prefetched lists).  Both are
+memory workarounds that change no output; K3 takes the whole table and all
+lists in one launch.  Its patch table is padded to 128 rows (K1's), not to
+32; the extra rows are all-padding blocks that are never listed.
+
+`sweep_codes_cuda` launches csrc/sweep_codes.cu for CUDA tensors and calls
+`sweep_codes_reference` for CPU tensors; it never falls back from one to
+the other.
+"""
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+
+import torch
+
+from ..bezier.patches import BezierPatches
+from ..config import DEFAULT as CFG
+from . import cuda_sweep as cs
+from . import intersect as ix
+
+# patches per candidate block: the JAX kernel's BLOCK_P
+BLOCK_P = 32
+
+# (ray, patch) pairs per chunk of the plain twin (K2's twin's bound)
+_REFERENCE_CHUNK_PAIRS = cs._REFERENCE_CHUNK_R * 512
+
+
+def sweep_codes_reference(patches: BezierPatches, start, direction,
+                          use_aabb: bool = True):
+    """Plain PyTorch version of K3: (code [R, P] i32, dist [R, P] f32).
+
+    Dense `intersect.sweep_codes`, then (WHAT_NONE, 0.0) on every pair
+    outside `cuda_sweep.evaluated_pairs(..., block_p=32)`.  Rays go in
+    chunks of whole tiles, about _REFERENCE_CHUNK_PAIRS pairs each."""
+    R = start.shape[0]
+    P = patches.num_patches
+    rays_t = cs.pad_rays(start.to(torch.float32), direction.to(torch.float32))
+    patch_t = cs.pack_patch_table(patches)
+    listed = cs.listed_blocks(
+        *cs.tile_block_lists(patches, rays_t, BLOCK_P, use_aabb),
+        patch_t.shape[0], BLOCK_P)
+
+    tiles_per_chunk = max(1, _REFERENCE_CHUNK_PAIRS // (cs.TILE_R * P))
+    codes, dists = [], []
+    for t0 in range(0, listed.shape[0], tiles_per_chunk):
+        rt = rays_t[:, t0 * cs.TILE_R:(t0 + tiles_per_chunk) * cs.TILE_R]
+        keep = cs.evaluated_pairs(listed[t0:t0 + tiles_per_chunk],
+                                  cs.sphere_hit_pairs(patch_t, rt), BLOCK_P)[:, :P]
+        code, dist = ix.sweep_codes(patches, rt[0:3].T, rt[3:6].T)
+        codes.append(torch.where(keep, code, ix.WHAT_NONE))
+        dists.append(torch.where(keep, dist, 0.0))
+    return torch.cat(codes)[:R], torch.cat(dists)[:R]
+
+
+# ---------------------------------------------------------------------------
+# the kernel: tables, load, launch
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class CodesInputs:
+    """Everything one launch of K3 reads, built by `prepare_inputs`."""
+
+    counts: torch.Tensor    # [T] i32 listed 32-patch blocks per tile
+    lists: torch.Tensor     # [P_pad / 32, T] i32 listed block ids, ascending
+    rays_t: torch.Tensor    # [8, R_pad] f32
+    patch_t: torch.Tensor   # [P_pad, 64] f32
+    num_patches: int
+
+
+def prepare_inputs(patches: BezierPatches, start, direction,
+                   use_aabb: bool = True) -> CodesInputs:
+    """K3's tables (plain tensor ops on the rays' device): K1's ray and
+    patch tables, lists at block 32."""
+    device = start.device
+    if patches.device != device or direction.device != device:
+        raise ValueError("patches, start and direction must share one device")
+    rays_t = cs.pad_rays(start.to(torch.float32), direction.to(torch.float32))
+    counts, lists = cs.tile_block_lists(patches, rays_t, BLOCK_P, use_aabb)
+    return CodesInputs(counts, lists, rays_t, cs.pack_patch_table(patches),
+                       patches.num_patches)
+
+
+def filled_outputs(inputs: CodesInputs):
+    """K3's outputs before a launch: (code [P_pad, R_pad] i32 all WHAT_NONE,
+    dist [P_pad, R_pad] f32 all 0.0), on the tables' device."""
+    shape, device = (inputs.patch_t.shape[0], inputs.rays_t.shape[1]), inputs.rays_t.device
+    return (torch.full(shape, ix.WHAT_NONE, dtype=torch.int32, device=device),
+            torch.zeros(shape, dtype=torch.float32, device=device))
+
+
+def launch(inputs: CodesInputs, out=None):
+    """One launch of K3 on the current stream over tables from
+    `prepare_inputs`: (code [P_pad, R_pad] i32, dist [P_pad, R_pad] f32),
+    patch-major as the TPU kernel writes them, (WHAT_NONE, 0.0) on every
+    pair it does not evaluate.
+
+    The kernel writes only the pairs it evaluates, into `out`: by default
+    fresh `filled_outputs`; outputs of an earlier launch on the same inputs
+    come back unchanged (how the kernel is timed without the fill)."""
+    device = inputs.rays_t.device
+    if device.type != "cuda":
+        raise ValueError(f"K3 runs on CUDA tensors, got {device}; on the CPU "
+                         "its plain twin computes the same function")
+    R_pad, P_pad = inputs.rays_t.shape[1], inputs.patch_t.shape[0]
+    T = R_pad // cs.TILE_R
+    if R_pad % cs.TILE_R or P_pad % cs._PATCH_PAD or not 0 < inputs.num_patches <= P_pad:
+        raise ValueError(f"unsupported shape: P = {inputs.num_patches}, "
+                         f"R_pad = {R_pad}, P_pad = {P_pad}")
+    for t, name, dtype, shape in (
+        (inputs.counts, "counts", torch.int32, (T,)),
+        (inputs.lists, "lists", torch.int32, (P_pad // BLOCK_P, T)),
+        (inputs.rays_t, "rays_t", torch.float32, (8, R_pad)),
+        (inputs.patch_t, "patch_t", torch.float32, (P_pad, cs._N_ROWS)),
+    ):
+        cs._check(t, name, dtype, shape, device)
+    code, dist = filled_outputs(inputs) if out is None else out
+    cs._check(code, "code", torch.int32, (P_pad, R_pad), device)
+    cs._check(dist, "dist", torch.float32, (P_pad, R_pad), device)
+
+    vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib = cs.load_library("sweep_codes", [vp] * 6 + [ci] * 4 + [cf] * 4 + [ci, vp])
+    with torch.cuda.device(device):
+        rc = lib.cbtr_sweep_codes(
+            inputs.counts.data_ptr(), inputs.lists.data_ptr(),
+            inputs.rays_t.data_ptr(), inputs.patch_t.data_ptr(),
+            code.data_ptr(), dist.data_ptr(),
+            T, inputs.num_patches, BLOCK_P,
+            int(CFG.root_search_iterations),
+            CFG.ray_plane_intersection_epsilon,
+            CFG.intersection_estimation_epsilon,
+            CFG.max_intersection_distance_from_ray,
+            CFG.minimal_ray_distance,
+            int(CFG.clamp_secant_estimate),
+            torch.cuda.current_stream(device).cuda_stream,
+        )
+    if rc != 0:
+        raise RuntimeError(
+            f"sweep_codes kernel launch failed: "
+            f"{lib.cbtr_cuda_error_string(rc).decode()} ({rc})")
+    sweep_codes_cuda.launches += 1
+    return code, dist
+
+
+def sweep_codes_cuda(patches: BezierPatches, start, direction,
+                     use_aabb: bool = True):
+    """K3 wrapper: (code [R, P] i32, dist [R, P] f32), the counterpart of
+    `sweep_codes_pallas`.
+
+    CPU tensors go to `sweep_codes_reference`; CUDA tensors launch
+    csrc/sweep_codes.cu and get the [R, P] (transposed, not contiguous)
+    view of its patch-major output.  There is no fallback between the two:
+    a build or launch failure raises.  `sweep_codes_cuda.launches` counts
+    the kernel's launches."""
+    if not start.is_cuda:
+        return sweep_codes_reference(patches, start, direction, use_aabb)
+    code, dist = launch(prepare_inputs(patches, start, direction, use_aabb))
+    R, P = start.shape[0], patches.num_patches
+    return code.T[:R, :P], dist.T[:R, :P]
+
+
+sweep_codes_cuda.launches = 0

@@ -123,13 +123,13 @@ def _ray_aabb_hit(lo, hi, s, d):
     return (tmax >= 0.0) & (tmin <= tmax)
 
 
-def _block_spheres_cr(center, radius):
-    """Merged sphere per BLOCK_P-patch block from per-patch (center [Pp,3],
-    radius [Pp]) whose row count is a BLOCK_P multiple; padding rows have
+def _block_spheres_cr(center, radius, block_p: int = BLOCK_P):
+    """Merged sphere per block_p-patch block from per-patch (center [Pp,3],
+    radius [Pp]) whose row count is a block_p multiple; padding rows have
     radius <= 0.  Returns ([B,3], [B]) with radius < 0 for all-padding
     blocks."""
-    cb = center.reshape(-1, BLOCK_P, 3)
-    rb = radius.reshape(-1, BLOCK_P)
+    cb = center.reshape(-1, block_p, 3)
+    rb = radius.reshape(-1, block_p)
     real = rb > 0.0
     denom = real.sum(dim=1).clamp_min(1).to(torch.float32)
     c = _seq_sum(torch.where(real[..., None], cb, 0.0), 1) / denom[:, None]
@@ -141,15 +141,17 @@ def _pad_rows(x, rows: int):
     return torch.cat([x, x.new_zeros((rows - x.shape[0],) + x.shape[1:])])
 
 
-def tile_block_lists(patches: BezierPatches, rays_t):
+def tile_block_lists(patches: BezierPatches, rays_t, block_p: int = BLOCK_P,
+                     use_aabb: bool = True):
     """Per-128-ray-tile candidate block lists.
 
     rays_t [8, R_pad] (rows sx, sy, sz, dx, dy, dz, 0, 0).  Returns
-    (counts [T] i32, lists [B, T] i32): lists[:counts[t], t] are the ids of
-    the blocks whose merged sphere AND union-of-patch-AABBs are hit by at
-    least one ray of tile t, ascending.  A dense [rays, B] test in chunks of
-    whole tiles (about _LIST_CHUNK_PAIRS ray-block pairs each), then a
-    stable sort."""
+    (counts [T] i32, lists [B, T] i32) with B = P_pad / block_p:
+    lists[:counts[t], t] are the ids of the blocks whose merged sphere AND
+    union-of-patch-AABBs are hit by at least one ray of tile t, ascending.
+    use_aabb=False drops the AABB leg (the sphere-only cull, for the bench's
+    cull A/B).  A dense [rays, B] test in chunks of whole tiles (about
+    _LIST_CHUNK_PAIRS ray-block pairs each), then a stable sort."""
     center, radius = patch_spheres(patches)
     P = patches.num_patches
     P_pad = P + (-P) % _PATCH_PAD
@@ -157,11 +159,11 @@ def tile_block_lists(patches: BezierPatches, rays_t):
     center, radius = _pad_rows(center, P_pad), _pad_rows(radius, P_pad)
     lo, hi = _pad_rows(lo, P_pad), _pad_rows(hi, P_pad)
 
-    c, r = _block_spheres_cr(center, radius)            # [B,3], [B]
+    c, r = _block_spheres_cr(center, radius, block_p)   # [B,3], [B]
     B = c.shape[0]
-    real = (radius > 0.0).reshape(-1, BLOCK_P)          # [B, BLOCK_P]
-    lob = torch.where(real[..., None], lo.reshape(-1, BLOCK_P, 3), torch.inf).amin(dim=1)
-    hib = torch.where(real[..., None], hi.reshape(-1, BLOCK_P, 3), -torch.inf).amax(dim=1)
+    real = (radius > 0.0).reshape(-1, block_p)          # [B, block_p]
+    lob = torch.where(real[..., None], lo.reshape(-1, block_p, 3), torch.inf).amin(dim=1)
+    hib = torch.where(real[..., None], hi.reshape(-1, block_p, 3), -torch.inf).amax(dim=1)
     r2 = (r * r)[None, :]
     chunk = max(1, _LIST_CHUNK_PAIRS // (B * TILE_R)) * TILE_R
     tile_hit = []
@@ -174,7 +176,8 @@ def tile_block_lists(patches: BezierPatches, rays_t):
         rel2 = rel[..., 0] * rel[..., 0] + rel[..., 1] * rel[..., 1] + rel[..., 2] * rel[..., 2]
         hit = ((rel2 - t_ca * t_ca) <= r2) & ((t_ca >= 0.0) | (rel2 <= r2))
         hit = hit & (r >= 0.0)[None, :]                 # all-padding blocks
-        hit = hit & _ray_aabb_hit(lob, hib, s, d)
+        if use_aabb:
+            hit = hit & _ray_aabb_hit(lob, hib, s, d)
         tile_hit.append(hit.reshape(-1, TILE_R, B).any(dim=1))      # [tc,B]
     tile_hit = torch.cat(tile_hit)
     counts = tile_hit.sum(dim=-1).to(torch.int32)
@@ -235,14 +238,15 @@ def sphere_hit_pairs(patch_t, rays_t):
 
 
 def sweep_select_reference(patches: BezierPatches, start, direction,
-                           cull: bool = True):
+                           cull: bool = True, use_aabb: bool = True):
     """Plain PyTorch version of K1: (any_hit [R], win [R] i32, win_dist [R]).
 
     cull=True computes the kernel's function: per-pair `_candidates_core`
     codes, pairs outside the listed-and-gated (tile x block) set forced to
-    WHAT_NONE, then `select_candidates`.  cull=False is `sweep_codes`
-    followed by `select_candidates` over every pair (the JAX package's XLA
-    path).  Rays are processed in chunks of _REFERENCE_CHUNK_R."""
+    WHAT_NONE, then `select_candidates`; use_aabb as in `tile_block_lists`.
+    cull=False is `sweep_codes` followed by `select_candidates` over every
+    pair (the JAX package's XLA path).  Rays are processed in chunks of
+    _REFERENCE_CHUNK_R."""
     R = start.shape[0]
     P = patches.num_patches
     start = start.to(torch.float32)
@@ -260,7 +264,8 @@ def sweep_select_reference(patches: BezierPatches, start, direction,
 
     rays_t = pad_rays(start, direction)
     patch_t = pack_patch_table(patches)
-    listed = listed_blocks(*tile_block_lists(patches, rays_t), patch_t.shape[0])
+    listed = listed_blocks(*tile_block_lists(patches, rays_t, use_aabb=use_aabb),
+                           patch_t.shape[0])
 
     tiles_per_chunk = _REFERENCE_CHUNK_R // TILE_R
     outs = []
@@ -274,9 +279,10 @@ def sweep_select_reference(patches: BezierPatches, start, direction,
     return tuple(torch.cat(o)[:R] for o in zip(*outs))
 
 
-def listed_blocks(counts, lists, P_pad: int):
-    """[T, B] bool: block b is on tile t's list (from `tile_block_lists`)."""
-    B = P_pad // BLOCK_P
+def listed_blocks(counts, lists, P_pad: int, block_p: int = BLOCK_P):
+    """[T, B] bool: block b is on tile t's list (from `tile_block_lists` at
+    the same block_p)."""
+    B = P_pad // block_p
     T = counts.shape[0]
     slot = torch.arange(B, device=counts.device)[:, None]          # [B,1]
     listed = torch.zeros((T, B), dtype=torch.bool, device=counts.device)
@@ -285,15 +291,15 @@ def listed_blocks(counts, lists, P_pad: int):
     return listed
 
 
-def evaluated_pairs(listed, sphere):
+def evaluated_pairs(listed, sphere, block_p: int = BLOCK_P):
     """The (ray, patch) pairs a kernel evaluates: those of blocks listed for
     the ray's tile AND gated, i.e. some (patch, ray) pair of block x tile
-    passes the sphere test.  listed [tc, B], sphere [tc*TILE_R, P_pad]
-    (`sphere_hit_pairs`) -> [tc*TILE_R, P_pad] bool."""
+    passes the sphere test.  listed [tc, B] (B = P_pad / block_p), sphere
+    [tc*TILE_R, P_pad] (`sphere_hit_pairs`) -> [tc*TILE_R, P_pad] bool."""
     tc, B = listed.shape
-    gated = sphere.reshape(tc, TILE_R, B, BLOCK_P).any(dim=3).any(dim=1)    # [tc,B]
+    gated = sphere.reshape(tc, TILE_R, B, block_p).any(dim=3).any(dim=1)    # [tc,B]
     return (listed & gated)[:, None, :, None].expand(
-        tc, TILE_R, B, BLOCK_P).reshape(tc * TILE_R, B * BLOCK_P)
+        tc, TILE_R, B, block_p).reshape(tc * TILE_R, B * block_p)
 
 
 # ---------------------------------------------------------------------------
@@ -311,8 +317,9 @@ NVCC_FLAGS = [
     "-shared", "-Xcompiler", "-fPIC",
 ]
 
+# every loaded kernel library by source stem (`load_library`)
 _lock = threading.Lock()
-_lib = None
+_libraries: dict[str, ctypes.CDLL] = {}
 
 
 def _nvcc() -> str:
@@ -366,27 +373,21 @@ def build_library() -> str:
 
 
 def load_library(stem: str, argtypes) -> ctypes.CDLL:
-    """Build the kernels (`build_library`) and load csrc/<stem>.cu's library,
-    declaring its entry point cbtr_<stem>(*argtypes) -> int (a CUDA error
-    code) and cbtr_cuda_error_string."""
-    build_library()
-    lib = ctypes.CDLL(library_path(stem))
-    entry = getattr(lib, f"cbtr_{stem}")
-    entry.restype = ctypes.c_int
-    entry.argtypes = argtypes
-    lib.cbtr_cuda_error_string.restype = ctypes.c_char_p
-    lib.cbtr_cuda_error_string.argtypes = [ctypes.c_int]
-    return lib
-
-
-def _library() -> ctypes.CDLL:
-    global _lib
+    """csrc/<stem>.cu's library, built (`build_library`) and loaded at the
+    first call and kept in `_libraries` for the next ones; its entry point
+    cbtr_<stem>(*argtypes) -> int (a CUDA error code) and
+    cbtr_cuda_error_string are declared."""
     with _lock:
-        if _lib is None:
-            vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-            _lib = load_library("sweep_select",
-                                [vp] * 7 + [ci] * 5 + [cf] * 4 + [ci, vp])
-        return _lib
+        if stem not in _libraries:
+            build_library()
+            lib = ctypes.CDLL(library_path(stem))
+            entry = getattr(lib, f"cbtr_{stem}")
+            entry.restype = ctypes.c_int
+            entry.argtypes = argtypes
+            lib.cbtr_cuda_error_string.restype = ctypes.c_char_p
+            lib.cbtr_cuda_error_string.argtypes = [ctypes.c_int]
+            _libraries[stem] = lib
+        return _libraries[stem]
 
 
 def _check(t: torch.Tensor, name: str, dtype, shape, device):
@@ -410,8 +411,10 @@ class KernelInputs:
     num_patches: int
 
 
-def prepare_inputs(patches: BezierPatches, start, direction) -> KernelInputs:
-    """The kernel's tables (plain tensor ops on the rays' device)."""
+def prepare_inputs(patches: BezierPatches, start, direction,
+                   use_aabb: bool = True) -> KernelInputs:
+    """The kernel's tables (plain tensor ops on the rays' device); use_aabb
+    as in `tile_block_lists`."""
     device = start.device
     if patches.device != device or direction.device != device:
         raise ValueError("patches, start and direction must share one device")
@@ -420,7 +423,7 @@ def prepare_inputs(patches: BezierPatches, start, direction) -> KernelInputs:
     patch_t = pack_patch_table(patches)
     nb = torch.full((patch_t.shape[0], 3), -1, dtype=torch.int32, device=device)
     nb[:P] = patches.neighbours.to(torch.int32)
-    counts, lists = tile_block_lists(patches, rays_t)
+    counts, lists = tile_block_lists(patches, rays_t, use_aabb=use_aabb)
     return KernelInputs(counts, lists, rays_t, patch_t, nb, P)
 
 
@@ -458,7 +461,8 @@ def launch(inputs: KernelInputs):
     dist = torch.empty(R_pad, dtype=torch.float32, device=device)
     idx = torch.empty(R_pad, dtype=torch.int32, device=device)
 
-    lib = _library()
+    vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib = load_library("sweep_select", [vp] * 7 + [ci] * 5 + [cf] * 4 + [ci, vp])
     with torch.cuda.device(device):
         rc = lib.cbtr_sweep_select(
             inputs.counts.data_ptr(), inputs.lists.data_ptr(),
@@ -481,17 +485,18 @@ def launch(inputs: KernelInputs):
     return dist, idx
 
 
-def sweep_select(patches: BezierPatches, start, direction):
+def sweep_select(patches: BezierPatches, start, direction, use_aabb: bool = True):
     """K1 wrapper: (any_hit [R] bool, win [R] i32, win_dist [R] f32).
 
     CPU tensors go to `sweep_select_reference` (cull=True); CUDA tensors
-    launch csrc/sweep_select.cu.  There is no fallback between the two: a
-    build or launch failure raises, and so does P > _FUSED_MAX_P on the GPU
-    (`intersect_rays` sends that range to K2, cuda_winner.sweep_winner).
-    `sweep_select.launches` counts the kernel's launches."""
+    launch csrc/sweep_select.cu; use_aabb as in `tile_block_lists`.  There
+    is no fallback between the two: a build or launch failure raises, and
+    so does P > _FUSED_MAX_P on the GPU (`intersect_rays` sends that range
+    to K2, cuda_winner.sweep_winner).  `sweep_select.launches` counts the
+    kernel's launches."""
     if not start.is_cuda:
-        return sweep_select_reference(patches, start, direction)
-    dist, idx = launch(prepare_inputs(patches, start, direction))
+        return sweep_select_reference(patches, start, direction, use_aabb=use_aabb)
+    dist, idx = launch(prepare_inputs(patches, start, direction, use_aabb))
     R = start.shape[0]
     best = dist[:R]
     return best < _BIG_F * 0.5, idx[:R], best

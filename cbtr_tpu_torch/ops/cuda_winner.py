@@ -29,7 +29,6 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-import threading
 
 import torch
 
@@ -43,18 +42,21 @@ from . import intersect as ix
 _REFERENCE_CHUNK_PAIRS = cs._REFERENCE_CHUNK_R * 512
 
 
-def sweep_winner_reference(patches: BezierPatches, start, direction):
+def sweep_winner_reference(patches: BezierPatches, start, direction,
+                           use_aabb: bool = True):
     """Plain PyTorch version of K2: (any_hit [R], win [R] i32, win_dist [R]).
 
     Dense `sweep_codes` over every (ray, patch) pair; direct candidates and
-    voters only where the pair is evaluated (listed and gated, as in K1);
-    K2's retry rule; then the min distance, lowest id on ties.  Rays go in
-    chunks of whole tiles, about _REFERENCE_CHUNK_PAIRS pairs each."""
+    voters only where the pair is evaluated (listed and gated, as in K1;
+    use_aabb as in `cuda_sweep.tile_block_lists`); K2's retry rule; then the
+    min distance, lowest id on ties.  Rays go in chunks of whole tiles,
+    about _REFERENCE_CHUNK_PAIRS pairs each."""
     R = start.shape[0]
     P = patches.num_patches
     rays_t = cs.pad_rays(start.to(torch.float32), direction.to(torch.float32))
     patch_t = cs.pack_patch_table(patches)
-    listed = cs.listed_blocks(*cs.tile_block_lists(patches, rays_t), patch_t.shape[0])
+    listed = cs.listed_blocks(
+        *cs.tile_block_lists(patches, rays_t, use_aabb=use_aabb), patch_t.shape[0])
     nb = patches.neighbours.to(device=start.device, dtype=torch.int64).clamp(0, P - 1)
 
     tiles_per_chunk = max(1, _REFERENCE_CHUNK_PAIRS // (cs.TILE_R * P))
@@ -83,23 +85,11 @@ def sweep_winner_reference(patches: BezierPatches, start, direction):
 # the kernel: load, launch
 # ---------------------------------------------------------------------------
 
-_lock = threading.Lock()
-_lib = None
-
-
-def _library() -> ctypes.CDLL:
-    global _lib
-    with _lock:
-        if _lib is None:
-            vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-            _lib = cs.load_library("winner", [vp] * 7 + [ci] * 4 + [cf] * 4 + [ci, vp])
-        return _lib
-
-
-def prepare_inputs(patches: BezierPatches, start, direction) -> cs.KernelInputs:
+def prepare_inputs(patches: BezierPatches, start, direction,
+                   use_aabb: bool = True) -> cs.KernelInputs:
     """K2's tables (plain tensor ops on the rays' device): K1's, with the
     neighbour ids clipped to [0, P) (padding rows are never read)."""
-    inputs = cs.prepare_inputs(patches, start, direction)
+    inputs = cs.prepare_inputs(patches, start, direction, use_aabb)
     return dataclasses.replace(inputs, nb=inputs.nb.clamp(0, inputs.num_patches - 1))
 
 
@@ -112,7 +102,8 @@ def launch(inputs: cs.KernelInputs):
     dist = torch.empty(R_pad, dtype=torch.float32, device=device)
     idx = torch.empty(R_pad, dtype=torch.int32, device=device)
 
-    lib = _library()
+    vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib = cs.load_library("winner", [vp] * 7 + [ci] * 4 + [cf] * 4 + [ci, vp])
     with torch.cuda.device(device):
         rc = lib.cbtr_winner(
             inputs.counts.data_ptr(), inputs.lists.data_ptr(),
@@ -135,16 +126,16 @@ def launch(inputs: cs.KernelInputs):
     return dist, idx
 
 
-def sweep_winner(patches: BezierPatches, start, direction):
+def sweep_winner(patches: BezierPatches, start, direction, use_aabb: bool = True):
     """K2 wrapper: (any_hit [R] bool, win [R] i32, win_dist [R] f32).
 
     CPU tensors go to `sweep_winner_reference`; CUDA tensors launch
-    csrc/winner.cu.  There is no fallback between the two: a build or
-    launch failure raises.  `sweep_winner.launches` counts the kernel's
-    launches."""
+    csrc/winner.cu; use_aabb as in `cuda_sweep.tile_block_lists`.  There is
+    no fallback between the two: a build or launch failure raises.
+    `sweep_winner.launches` counts the kernel's launches."""
     if not start.is_cuda:
-        return sweep_winner_reference(patches, start, direction)
-    dist, idx = launch(prepare_inputs(patches, start, direction))
+        return sweep_winner_reference(patches, start, direction, use_aabb)
+    dist, idx = launch(prepare_inputs(patches, start, direction, use_aabb))
     R = start.shape[0]
     best = dist[:R]
     return best < cs._BIG_F * 0.5, idx[:R], best

@@ -10,7 +10,10 @@ checks them:
 * the large-P lenses above the fused path's 1024 patches, through K2
   (cbtr_tpu_torch/csrc/winner.cu): the refined robot (1800 patches) renders
   and trains at 512^2 rays, the split robots (7200 and 16,200 patches) and the
-  dimpled solid (1890) intersect.
+  dimpled solid (1890) intersect;
+* the port's benchmark entry point, `python -m cbtr_tpu_torch.bench`, whose
+  staged sweep runs K3 (cbtr_tpu_torch/csrc/sweep_codes.cu) and whose
+  roofline is measured by K4 (cbtr_tpu_torch/csrc/fma_peak.cu).
 
 Phases:
 
@@ -37,6 +40,18 @@ Phases:
      (sphere 17 x 10, 256^2) and P = 1800 (K1's twin): the rays on which
      they differ and which one the unculled reference agrees with; both
      kernels' times
+  f  K3 against its twin at 65,536 x 450 (the bench's breakdown shape) and
+     65,536 x 1800 (refined): codes on every pair, distances bit-equal on
+     every cIntersect pair (the other pairs counted); the staged winners
+     (K3, then select_candidates) against K1 or K2; recompute rejects on
+     4096 rays; K3's time alone (on outputs filled once), with the output
+     fill, with the fill and its tables, and its twin's
+  g  K4 against its twin (rtol 2e-6) at the short lengths fp.CHECK_LENGTHS,
+     where the chains have not converged, and at both timing lengths;
+     the FMA peak measured 3 times (fp.RUNS), every run and the card's ceiling
+  h  `python -m cbtr_tpu_torch.bench --preset smoke` in a subprocess: its
+     last line parses and holds the headline keys; its launch counts (reset
+     at the bench's start, read at its end) show K1, K3 and K4 launched
 
 One line per phase, then the kernel table as JSON, the card's name and
 power limit, and last {"ok": true, "device": {...}}.  Any failure raises
@@ -186,6 +201,8 @@ def main() -> int:
         robot_lens_scene,
         sphere_lens_scene,
     )
+    from cbtr_tpu_torch.benchmarks import fma_peak as fp
+    from cbtr_tpu_torch.ops import cuda_codes as cc
     from cbtr_tpu_torch.ops import cuda_sweep as cs
     from cbtr_tpu_torch.ops import cuda_winner as cw
     from cbtr_tpu_torch.ops import intersect as ix
@@ -195,14 +212,17 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     card = _card()
-    kernels = {"sweep_select": cs.sweep_select, "winner": cw.sweep_winner}
+    kernels = {"sweep_select": cs.sweep_select, "winner": cw.sweep_winner,
+               "sweep_codes": cc.sweep_codes_cuda, "fma_chains": fp.fma_chains}
+    t_script = time.perf_counter()
 
     # ---- 0: device, versions, kernel build -------------------------------
     t = time.perf_counter()
     cs.build_library()
     build_s = time.perf_counter() - t
     print(f"[0] card: {card} | torch {torch.__version__} cuda {torch.version.cuda} "
-          f"| python {sys.version.split()[0]} | K1 + K2 build {build_s:.3f} s",
+          f"| python {sys.version.split()[0]} | K1 + K2 + K3 + K4 build (one nvcc "
+          f"per source, in parallel) {build_s:.3f} s",
           flush=True)
 
     # ---- 1: scene ----------------------------------------------------------
@@ -258,7 +278,8 @@ def main() -> int:
     # The loss scales with the square of the rays per pixel, so the step size
     # is the one that descends at 64^2 rays (1e-3) scaled by (64/512)^4.
     losses, g_max, g_n, main_launches = _train(lens_model, scene, kernels, 2.5e-7)
-    assert main_launches == {"sweep_select": 6, "winner": 0}, main_launches
+    assert main_launches == {"sweep_select": 6, "winner": 0, "sweep_codes": 0,
+                             "fma_chains": 0}, main_launches
     print(f"[4] train: 3 SGD steps, loss {losses}, |grad cp| max {g_max:.4e}, "
           f"grad n {g_n:.4e}, launches {main_launches}", flush=True)
 
@@ -308,7 +329,8 @@ def main() -> int:
         counted.launches = 0
     ix.intersect_rays(rp, rs[:4096], rd[:4096])
     routed = {k: v.launches for k, v in kernels.items()}
-    assert routed == {"sweep_select": 0, "winner": 1}, routed
+    assert routed == {"sweep_select": 0, "winner": 1, "sweep_codes": 0,
+                      "fma_chains": 0}, routed
     got = cw.sweep_winner(rp, rs, rd)
     ref = cw.sweep_winner_reference(rp, rs, rd)
     k2_cmp = _compare(got, ref)
@@ -326,7 +348,8 @@ def main() -> int:
     assert torch.isfinite(img).all() and float(img.sum()) > 1000.0
     torch.testing.assert_close(img, img_plain, rtol=1e-3, atol=1e-4)
     losses, g_max, g_n, large_launches = _train(lens_model, refined, kernels, 2.5e-7)
-    assert large_launches == {"sweep_select": 0, "winner": 6}, large_launches
+    assert large_launches == {"sweep_select": 0, "winner": 6, "sweep_codes": 0,
+                              "fma_chains": 0}, large_launches
     print(f"[a] render on K2 vs twin: max |d| {float((img - img_plain).abs().max()):.3e}; "
           f"train: 3 SGD steps, loss {losses}, |grad cp| max {g_max:.4e}, grad n "
           f"{g_n:.4e}, launches {large_launches}", flush=True)
@@ -424,7 +447,105 @@ def main() -> int:
         else:
             line += " (K1's twin)"
         print(line, flush=True)
+    del sphere
 
+    # ---- f: K3 against its twin; the staged winners ----------------------------
+    k3_rows = {}
+    for name, sc in (("robot", scene), ("refined", refined)):
+        p, s, d = sc.patches, sc.start[:65536], sc.direction[:65536]
+        code, dist = cc.sweep_codes_cuda(p, s, d)
+        code_r, dist_r = cc.sweep_codes_reference(p, s, d)
+        torch.cuda.synchronize()
+        inter = (code_r & 7) == ix.WHAT_INTERSECT
+        codes_differ = int((code != code_r).sum())
+        dist_differ = int((dist != dist_r)[inter].sum())
+        other_differ = int((dist != dist_r)[~inter].sum())
+        max_err = float((dist - dist_r)[inter].abs().max())
+        staged = ix.select_candidates(code, dist, p.neighbours)
+        direct = (cs.sweep_select if p.num_patches <= cs._FUSED_MAX_P else cw.sweep_winner)
+        cmp = _compare(staged, direct(p, s, d))
+        _, rejects = ix.recompute_winner(p, s[:4096], d[:4096], staged[0][:4096],
+                                         staged[1][:4096], with_check=True)
+        print(f"[f] K3 vs twin at {s.shape[0]} x {p.num_patches} ({name}): pairs with "
+              f"another code {codes_differ} of {code.numel()}, cIntersect pairs "
+              f"{int(inter.sum())} of which with another distance {dist_differ} (max "
+              f"|d| {max_err:.3e}), other pairs with another distance {other_differ}; "
+              f"staged winners vs {direct.__name__}: any_hit agreement {cmp[0]:.6f}, win "
+              f"agreement {cmp[1]:.6f}, {cmp[4]} rays differ; recompute rejects on 4096 "
+              f"rays {rejects}", flush=True)
+        assert codes_differ == 0 and dist_differ == 0 and int(inter.sum()) > 10000, name
+        assert cmp[0] >= 0.999 and cmp[1] >= 0.999 and rejects <= 4, (name, cmp, rejects)
+        del code, dist, code_r, dist_r, inter, staged
+        k3_in = cc.prepare_inputs(p, s, d)
+        k3_out = cc.filled_outputs(k3_in)
+        k3_rows[name] = dict(
+            max_err=max_err,
+            alone=_time_ms(lambda: cc.launch(k3_in, k3_out)),
+            fill=_time_ms(lambda: cc.launch(k3_in)),
+            tables=_time_ms(lambda: cc.sweep_codes_cuda(p, s, d)),
+            plain=_time_ms(lambda: cc.sweep_codes_reference(p, s, d), windows=3, inner=1,
+                           warmup=0))
+        del k3_in, k3_out
+        torch.cuda.empty_cache()
+        print(f"[f] {card} | K3 sweep codes {s.shape[0]} x {p.num_patches}: "
+              f"{k3_rows[name]['alone']:.3f} ms kernel alone (outputs filled once), "
+              f"{k3_rows[name]['fill']:.3f} ms with the output fill, "
+              f"{k3_rows[name]['tables']:.3f} ms with the fill and its tables vs plain "
+              f"twin {k3_rows[name]['plain']:.3f} ms", flush=True)
+
+    # ---- g: K4 against its twin; the FMA peak ------------------------------------
+    a = 0.5 + 0.2 * torch.rand(fp.chains_elements(dev), device=dev,
+                               generator=torch.Generator(device=dev).manual_seed(0))
+    # the timing lengths only show the chains' fixed point; the short ones
+    # (fp.CHECK_LENGTHS) hold the start factors, the step count and the
+    # unroll remainder
+    k4_err, rels = 0.0, {}
+    for n_iter in (*fp.CHECK_LENGTHS, fp.N_SMALL, fp.N_BIG):
+        got, ref = fp.launch(a, n_iter), fp.fma_chains_reference(a, n_iter)
+        torch.cuda.synchronize()
+        rels[n_iter] = float(((got - ref).abs() / ref.abs()).max())
+        k4_err = max(k4_err, float((got - ref).abs().max()))
+        assert torch.isfinite(got).all() and rels[n_iter] <= 2e-6, (n_iter, rels)
+    print(f"[g] K4 vs twin, {a.numel()} elements x {fp.K_CHAINS} chains: max relative "
+          f"difference by steps {', '.join(f'{n}: {r:.3e}' for n, r in rels.items())}",
+          flush=True)
+    k4_ms = {n: _time_ms(lambda n=n: fp.launch(a, n), windows=5, inner=1)
+             for n in (fp.N_SMALL, fp.N_BIG)}
+    k4_plain_ms = _time_ms(lambda: fp.fma_chains_reference(a, fp.N_BIG), windows=1,
+                           inner=1, warmup=0)
+    runs = [fp.measure_fma_peak(5, dev) for _ in range(fp.RUNS)]
+    ceiling = fp.fma_ceiling(dev)
+    peak, kept = fp.select_peak(runs, ceiling)
+    print(f"[g] {card} | K4 {fp.N_SMALL} steps {k4_ms[fp.N_SMALL]:.3f} ms, {fp.N_BIG} "
+          f"steps {k4_ms[fp.N_BIG]:.3f} ms (plain twin {k4_plain_ms:.3f} ms); FMA peak "
+          f"runs {[round(r / 1e12, 3) for r in runs]} TFLOP/s, ceiling "
+          f"{ceiling / 1e12:.3f} TFLOP/s, reported {peak / 1e12:.3f} ({len(kept)} runs "
+          f"kept)", flush=True)
+    assert k4_ms[fp.N_BIG] >= 5.0 and k4_ms[fp.N_SMALL] <= k4_ms[fp.N_BIG] / 10, k4_ms
+    assert 0 < peak <= ceiling
+
+    # ---- h: the bench entry point -----------------------------------------------
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "cbtr_tpu_torch.bench", "--preset",
+                           "smoke"], capture_output=True, text=True, timeout=600,
+                          cwd=os.path.dirname(os.path.abspath(__file__)))
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    bench = json.loads(proc.stdout.strip().splitlines()[-1])
+    for key in ("metric", "value", "unit", "vs_baseline", "fma_peak_tflops"):
+        assert key in bench, key
+    assert bench["value"] > 0 and bench["breakdown_ms"]["sweep_staged"] > 0
+    bench_launches = bench["kernel_launches"]
+    assert all(bench_launches[k] > 0 for k in ("sweep_select", "sweep_codes",
+                                                "fma_chains")), bench_launches
+    print(f"[h] bench --preset smoke in {time.perf_counter() - t:.1f} s: "
+          f"{bench['metric']}: "
+          f"{bench['value']} {bench['unit']}, vs_baseline {bench['vs_baseline']}, staged "
+          f"sweep {bench['breakdown_ms']['sweep_staged']} ms, FMA peak "
+          f"{bench['fma_peak_tflops']} TFLOP/s, launches {bench_launches}", flush=True)
+
+    print(f"chip_smoke took {time.perf_counter() - t_script:.1f} s after the imports",
+          flush=True)
     print(json.dumps({"kernels": [
         {
             "name": "sweep_select",
@@ -447,6 +568,28 @@ def main() -> int:
             "ms": k2_ms,
             "plain_ms": k2_plain_ms,
             "kernel_only_ms": k2_launch_ms,
+        },
+        {
+            "name": "sweep_codes",
+            "route": "cuda",
+            "source": "cbtr_tpu_torch/csrc/sweep_codes.cu",
+            "replaces": "cbtr_tpu/ops/pallas_sweep.py:125",
+            "launches": bench_launches["sweep_codes"],
+            "max_abs_err": max(r["max_err"] for r in k3_rows.values()),
+            "ms": k3_rows["robot"]["tables"],
+            "plain_ms": k3_rows["robot"]["plain"],
+            "kernel_only_ms": k3_rows["robot"]["alone"],
+            "kernel_and_fill_ms": k3_rows["robot"]["fill"],
+        },
+        {
+            "name": "fma_chains",
+            "route": "cuda",
+            "source": "cbtr_tpu_torch/csrc/fma_peak.cu",
+            "replaces": "benchmarks/vpu_peak.py:48",
+            "launches": bench_launches["fma_chains"],
+            "max_abs_err": k4_err,
+            "ms": k4_ms[fp.N_BIG],
+            "plain_ms": k4_plain_ms,
         },
     ]}), flush=True)
     print(card, flush=True)

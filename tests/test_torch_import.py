@@ -14,6 +14,13 @@ os.environ["PATH"] = ""          # no nvcc (nor anything else) on PATH
 import cbtr_tpu_torch
 import cbtr_tpu_torch.ops.cuda_sweep as cs
 import cbtr_tpu_torch.ops.cuda_winner as cw
+import cbtr_tpu_torch.ops.cuda_codes as cc
+import cbtr_tpu_torch.benchmarks.fma_peak as fp
+import cbtr_tpu_torch.bench
+import cbtr_tpu_torch.harness.reference_tracer
+import cbtr_tpu_torch.models.fit
+import cbtr_tpu_torch.render.emitters
+import cbtr_tpu_torch.render.ray_sort
 import cbtr_tpu_torch.bezier.refine
 import cbtr_tpu_torch.bezier.tessellate
 import cbtr_tpu_torch.harness.measure
@@ -24,8 +31,9 @@ import cbtr_tpu_torch.render.render
 assert shutil.which("nvcc") is None
 assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
 assert not any(m == "cbtr_tpu" or m.startswith("cbtr_tpu.") for m in sys.modules)
-assert cs._lib is None and cs.sweep_select.launches == 0
-assert cw._lib is None and cw.sweep_winner.launches == 0
+assert cs._libraries == {}       # no kernel library built or loaded
+assert cs.sweep_select.launches == 0 and cw.sweep_winner.launches == 0
+assert cc.sweep_codes_cuda.launches == 0 and fp.fma_chains.launches == 0
 print("IMPORT_OK")
 """
 
@@ -59,7 +67,7 @@ def test_cpu_wrapper_runs_the_twin_without_launching():
     got = cs.sweep_select(patches, start, direction)
     want = cs.sweep_select_reference(patches, start, direction)
     assert cs.sweep_select.launches == before
-    assert cs._lib is None
+    assert "sweep_select" not in cs._libraries
     for g, w in zip(got, want):
         assert torch.equal(g, w)
     assert got[0].sum() >= 10
