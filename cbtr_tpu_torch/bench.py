@@ -372,7 +372,7 @@ def run(args) -> dict:
         del k3_in, listed, evaluated
 
         if not smoke:
-            # ---- cull A/B: the AABB leg of K1's lists off and on ------------
+            # ---- cull A/B: the AABB leg of K1's cull off and on -------------
             rays_t = cs.pad_rays(sb, db)
             tiles, n_blocks = rays_t.shape[1] // cs.TILE_R, math.ceil(P / cs.BLOCK_P)
 

@@ -1,13 +1,24 @@
 // Candidate arithmetic shared by the port's sweep kernels: K1
-// (sweep_select.cu) and K2 (winner.cu).
+// (sweep_select.cu), K2 (winner.cu) and K3 (sweep_codes.cu).
 //
-// eval_candidate evaluates the expressions of
+// candidate_code evaluates the expressions of
 // cbtr_tpu_torch/ops/intersect.py::_candidates_core in the same order.  With
 // -fmad=false and IEEE sqrt/division (see cuda_sweep.NVCC_FLAGS) every
 // operation rounds like the plain twins' separate torch ops, and 1/sqrt is
-// written out where the TPU kernels used an approximate rsqrt.  Both kernels
-// include this one definition, so their candidates are bit-identical to
+// written out where the TPU kernels used an approximate rsqrt.  Every kernel
+// includes this one definition, so their candidates are bit-identical to
 // each other's and to the twins'.
+//
+// A patch row is read through an accessor that names its address space:
+// SharedRow for a block staged in shared memory (LDS broadcasts: all 128
+// threads of a tile read the same row at once), GlobalRow for a row read
+// straight from the L2-resident table (__ldg; K1's and K2's retries).  The
+// code is a template over the accessor and is inlined into each caller.
+// Without contraction nvcc does not reassociate f32 arithmetic, so every
+// instance rounds the same way: a retry's distance read through GlobalRow is
+// bit-identical to the one the sweep computed through SharedRow.  Aligned
+// column groups (the control net, the divider planes, the bounding sphere)
+// are read as 16-byte quads.
 //
 // Everything here has internal linkage: each kernel source is built into a
 // library of its own.
@@ -47,6 +58,25 @@ struct Ray {
   float sx, sy, sz, dx, dy, dz;
 };
 
+// a patch row in shared memory (a staged block: K1, K2, K3); rows start
+// 256-byte aligned
+struct SharedRow {
+  const float* p;
+  __device__ __forceinline__ float operator[](int i) const { return p[i]; }
+  __device__ __forceinline__ float4 quad(int i) const {
+    return *reinterpret_cast<const float4*>(p + i);
+  }
+};
+
+// a patch row of the device-memory table, through the read-only cache
+struct GlobalRow {
+  const float* p;
+  __device__ __forceinline__ float operator[](int i) const { return __ldg(p + i); }
+  __device__ __forceinline__ float4 quad(int i) const {
+    return __ldg(reinterpret_cast<const float4*>(p + i));
+  }
+};
+
 __device__ __forceinline__ float safe_div(float num, float den) {
   // constants go through double, as torch converts a Python float scalar
   const float eps = static_cast<float>(1e-12);
@@ -54,30 +84,53 @@ __device__ __forceinline__ float safe_div(float num, float den) {
   return num / den_safe;
 }
 
-// torch.maximum / torch.minimum: NaN propagates
+// torch.maximum / torch.minimum: NaN propagates.  One instruction each
+// (max.NaN / min.NaN) where a select on two NaN tests took five; the two
+// forms can differ only in which zero a tie of +0 and -0 returns, and the
+// kernels stay bit-equal to their twins at every shape chip_smoke checks.
 __device__ __forceinline__ float tmax(float a, float b) {
-  return (a != a || b != b) ? (a + b) : (a > b ? a : b);
+  float m;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(m) : "f"(a), "f"(b));
+  return m;
 }
 __device__ __forceinline__ float tmin(float a, float b) {
-  return (a != a || b != b) ? (a + b) : (a < b ? a : b);
+  float m;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(m) : "f"(a), "f"(b));
+  return m;
 }
 __device__ __forceinline__ float clip(float x, float lo, float hi) {
   return tmin(tmax(x, lo), hi);
 }
 
+// columns 0..31 of a row as 8 quads: the control net (0..29) and two
+// plane columns nobody reads from this copy
+template <class Row>
+__device__ __forceinline__ void load_net(const Row& row, float (&cp)[32]) {
+#pragma unroll
+  for (int q = 0; q < 8; ++q) {
+    const float4 v = row.quad(4 * q);
+    cp[4 * q] = v.x;
+    cp[4 * q + 1] = v.y;
+    cp[4 * q + 2] = v.z;
+    cp[4 * q + 3] = v.w;
+  }
+}
+
 // bary = M @ p, each row a left-to-right sum
-__device__ __forceinline__ void apply_mat3(const float* m, float px, float py,
+template <class Row>
+__device__ __forceinline__ void apply_mat3(const Row& row, float px, float py,
                                            float pz, float& b0, float& b1,
                                            float& b2) {
-  b0 = m[0] * px + m[1] * py + m[2] * pz;
-  b1 = m[3] * px + m[4] * py + m[5] * pz;
-  b2 = m[6] * px + m[7] * py + m[8] * pz;
+  const int m = ROW_BINV;
+  b0 = row[m + 0] * px + row[m + 1] * py + row[m + 2] * pz;
+  b1 = row[m + 3] * px + row[m + 4] * py + row[m + 5] * pz;
+  b2 = row[m + 6] * px + row[m + 7] * py + row[m + 8] * pz;
 }
 
 // cubic surface point: sum_k w_k * cp_k, k = 0..9 left to right
-__device__ __forceinline__ void interpolate(const float* cp, float b0, float b1,
-                                            float b2, float& fx, float& fy,
-                                            float& fz) {
+__device__ __forceinline__ void interpolate(const float (&cp)[32], float b0,
+                                            float b1, float b2, float& fx,
+                                            float& fy, float& fz) {
   const float b0_2 = b0 * b0, b1_2 = b1 * b1, b2_2 = b2 * b2;
   const float w[10] = {
       b0 * b0_2,        b1 * b1_2,        b2 * b2_2,
@@ -108,13 +161,15 @@ __device__ __forceinline__ void safe_normalize(float& x, float& y, float& z) {
 
 // unit normal from the two directional derivatives (bezier/patches.py
 // patch_normal; reference/bezierTriangle.cpp:197-233)
-__device__ __forceinline__ void patch_normal(const float* cp, const float* db,
+template <class Row>
+__device__ __forceinline__ void patch_normal(const float (&cp)[32], const Row& row,
                                              float b0, float b1, float b2,
                                              float& nx, float& ny, float& nz) {
   const float b0_2 = b0 * b0, b1_2 = b1 * b1, b2_2 = b2 * b2;
   const float ab = 2.0f * b0 * b1;
   const float bc = 2.0f * b1 * b2;
   const float ac = 2.0f * b0 * b2;
+  const float db0 = row[ROW_DB], db1 = row[ROW_DB + 1], db2 = row[ROW_DB + 2];
   float a[3], b[3];
 #pragma unroll
   for (int x = 0; x < 3; ++x) {
@@ -125,7 +180,7 @@ __device__ __forceinline__ void patch_normal(const float* cp, const float* db,
     const float comp2 = b2_2 * cp[6 + x] + b1_2 * cp[15 + x] + bc * cp[18 + x] +
                         ac * cp[21 + x] + b0_2 * cp[24 + x] + ab * cp[27 + x];
     a[x] = comp0 - comp2;
-    b[x] = db[0] * comp0 + db[1] * comp1 + db[2] * comp2;
+    b[x] = db0 * comp0 + db1 * comp1 + db2 * comp2;
   }
   nx = a[1] * b[2] - a[2] * b[1];
   ny = a[2] * b[0] - a[0] * b[2];
@@ -135,7 +190,8 @@ __device__ __forceinline__ void patch_normal(const float* cp, const float* db,
 
 // |plane distance of the ray point| - |plane distance of the surface point
 // above its projection| (the secant bracket's residual)
-__device__ __forceinline__ float surface_diff(const float* row, const Ray& r,
+template <class Row>
+__device__ __forceinline__ float surface_diff(const Row& row, const Ray& r,
                                               float t) {
   const float nx = row[ROW_PLANE], ny = row[ROW_PLANE + 1],
               nz = row[ROW_PLANE + 2], c = row[ROW_PLANE + 3];
@@ -143,12 +199,14 @@ __device__ __forceinline__ float surface_diff(const float* row, const Ray& r,
   const float pd = (px * nx + py * ny + pz * nz) - c;
   const float qx = px - nx * pd, qy = py - ny * pd, qz = pz - nz * pd;
   float b0, b1, b2;
-  apply_mat3(row + ROW_BINV, qx, qy, qz, b0, b1, b2);
+  apply_mat3(row, qx, qy, qz, b0, b1, b2);
   b0 = clip(b0, -16.0f, 16.0f);
   b1 = clip(b1, -16.0f, 16.0f);
   b2 = clip(b2, -16.0f, 16.0f);
+  float cp[32];
+  load_net(row, cp);
   float fx, fy, fz;
-  interpolate(row, b0, b1, b2, fx, fy, fz);
+  interpolate(cp, b0, b1, b2, fx, fy, fz);
   const float sd = (fx * nx + fy * ny + fz * nz) - c;
   return fabsf(pd) - fabsf(sd);
 }
@@ -156,12 +214,13 @@ __device__ __forceinline__ float surface_diff(const float* row, const Ray& r,
 // Gate-OFF candidate of one (ray, patch) pair: returns
 // code = what | (in_domain << 3) and writes the along-ray distance.  The
 // distance is meaningful only where what == WHAT_INTERSECT.
-__device__ __noinline__ int eval_candidate(const float* row, const Ray r,
-                                           const Params prm, float* dist_out) {
+template <class Row>
+__device__ __forceinline__ int candidate_code(const Row& row, const Ray& r,
+                                              const Params& prm,
+                                              float* dist_out) {
   const float nx = row[ROW_PLANE], ny = row[ROW_PLANE + 1],
               nz = row[ROW_PLANE + 2], c = row[ROW_PLANE + 3];
   const float h_in = row[ROW_H], h_out = row[ROW_H + 1];
-  const float* m = row + ROW_BINV;
 
   // ray x underlying plane (reference/bezierTriangle.cpp:124-126)
   float cos_inc = r.dx * nx + r.dy * ny + r.dz * nz;
@@ -170,7 +229,7 @@ __device__ __noinline__ int eval_candidate(const float* row, const Ray r,
   valid = valid && (fabsf(dist0) > -h_in) && (fabsf(dist0) > h_out);
 
   float b0, b1, b2;
-  apply_mat3(m, r.sx + dist0 * r.dx, r.sy + dist0 * r.dy, r.sz + dist0 * r.dz,
+  apply_mat3(row, r.sx + dist0 * r.dx, r.sy + dist0 * r.dy, r.sz + dist0 * r.dz,
              b0, b1, b2);
   const int in_dom = (b0 >= 0.0f && b0 <= 1.0f && b1 >= 0.0f && b1 <= 1.0f &&
                       b2 >= 0.0f && b2 <= 1.0f) ? 1 : 0;
@@ -211,13 +270,15 @@ __device__ __noinline__ int eval_candidate(const float* row, const Ray r,
     const float t = safe_div(c - (nx * px + ny * py + nz * pz),
                              pdx * nx + pdy * ny + pdz * nz);
     const float plx = px + t * pdx, ply = py + t * pdy, plz = pz + t * pdz;
-    apply_mat3(m, plx, ply, plz, b0, b1, b2);
+    apply_mat3(row, plx, ply, plz, b0, b1, b2);
     b0 = clip(b0, -16.0f, 16.0f);
     b1 = clip(b1, -16.0f, 16.0f);
     b2 = clip(b2, -16.0f, 16.0f);
+    float cp[32];
+    load_net(row, cp);
     float nmx, nmy, nmz;
-    patch_normal(row, row + ROW_DB, b0, b1, b2, nmx, nmy, nmz);
-    interpolate(row, b0, b1, b2, fx, fy, fz);
+    patch_normal(cp, row, b0, b1, b2, nmx, nmy, nmz);
+    interpolate(cp, b0, b1, b2, fx, fy, fz);
     float stx = fx - plx, sty = fy - ply, stz = fz - plz;
     const float st2 = stx * stx + sty * sty + stz * stz;
     safe_normalize(stx, sty, stz);
@@ -248,8 +309,8 @@ __device__ __noinline__ int eval_candidate(const float* row, const Ray r,
   int outside = 0;
 #pragma unroll
   for (int j = 0; j < 3; ++j) {
-    const float* dv = row + ROW_DIV + 4 * j;
-    const float dd = (fx * dv[0] + fy * dv[1] + fz * dv[2]) - dv[3];
+    const float4 dv = row.quad(ROW_DIV + 4 * j);
+    const float dd = (fx * dv.x + fy * dv.y + fz * dv.z) - dv.w;
     outside += (dd < 0.0f ? 1 : 0) << j;
   }
   const int what = outside == 1 ? 0 : outside == 2 ? 1 : outside == 4 ? 2
@@ -257,16 +318,27 @@ __device__ __noinline__ int eval_candidate(const float* row, const Ray r,
   return what | (in_dom << 3);
 }
 
+// K3's evaluator: one out-of-line copy over a row of its staged block
+__device__ __noinline__ int eval_candidate(const float* row, const Ray r,
+                                           const Params prm, float* dist_out) {
+  return candidate_code(SharedRow{row}, r, prm, dist_out);
+}
+
 // per-patch bounding-sphere cull (cuda_sweep.sphere_hit_pairs)
-__device__ __forceinline__ bool sphere_hit(const float* row, const Ray& r) {
-  const float relx = row[ROW_BSPHERE] - r.sx;
-  const float rely = row[ROW_BSPHERE + 1] - r.sy;
-  const float relz = row[ROW_BSPHERE + 2] - r.sz;
-  const float brad = row[ROW_BSPHERE + 3];
+template <class Row>
+__device__ __forceinline__ bool patch_sphere_hit(const Row& row, const Ray& r) {
+  const float4 s = row.quad(ROW_BSPHERE);
+  const float relx = s.x - r.sx;
+  const float rely = s.y - r.sy;
+  const float relz = s.z - r.sz;
   const float t_ca = relx * r.dx + rely * r.dy + relz * r.dz;
   const float rel2 = relx * relx + rely * rely + relz * relz;
-  const float r2 = brad * brad;
+  const float r2 = s.w * s.w;
   return ((rel2 - t_ca * t_ca) <= r2) && ((t_ca >= 0.0f) || (rel2 <= r2));
+}
+
+__device__ __forceinline__ bool sphere_hit(const float* row, const Ray& r) {
+  return patch_sphere_hit(SharedRow{row}, r);
 }
 
 // min distance, lowest patch id on ties

@@ -12,12 +12,14 @@ rays, 128 x 128 image, zero target):
 * torch.profiler over one forward and one step: device ops run and the
   device's busy time (the union of their intervals), set against the
   unprofiled wall time;
-* the fraction of (tile x block) pairs K1's lists keep.
+* the fraction of (tile x block) pairs K1's cull lists (the kernel's own
+  per-tile counts on the card).
 
     python -m cbtr_tpu_torch.harness.profile_step [--res 512] [--runs 5]
-        [--out profile.json]
+        [--device cuda] [--out profile.json]
 
-On a CPU (for debugging at a small --res) only the host times are taken.
+It runs on the card and raises where there is none.  --device cpu (for
+debugging at a small --res) takes the host times only.
 """
 from __future__ import annotations
 
@@ -122,9 +124,12 @@ def _busy(fn, cuda: bool) -> dict:
     return {"device_ops": len(ranges), "busy_ms": busy / 1e3 if ranges else None}
 
 
-def run_profile(res: int = 512, runs: int = 5) -> dict:
-    cuda = torch.cuda.is_available()
-    dev = torch.device("cuda", 0) if cuda else torch.device("cpu")
+def run_profile(res: int = 512, runs: int = 5, device="cuda") -> dict:
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+    if cuda and not torch.cuda.is_available():
+        raise RuntimeError(f"run_profile(device={str(device)!r}): no CUDA device "
+                           "here; device='cpu' takes host times only")
     if cuda:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
@@ -180,12 +185,16 @@ def run_profile(res: int = 512, runs: int = 5) -> dict:
         peak_gib = torch.cuda.max_memory_allocated(dev) / 2 ** 30
 
     inputs = cs.prepare_inputs(patches, start, direction)
-    listed = float(inputs.counts.sum()) / (inputs.counts.numel() * inputs.lists.shape[0])
+    if cuda:
+        counts = cs.launch(inputs).counts
+    else:
+        counts = cs.tile_bitmap_reference(inputs.bounds, inputs.rays_t).sum(dim=1)
+    listed = float(counts.sum()) / (counts.numel() * inputs.bounds.shape[0])
     fwd_busy = _busy(forward, cuda)
     step_busy = _busy(lambda: step(params, start, direction), cuda)
     share = (lambda b, w: b / w if b is not None else None)
     return {
-        "device": torch.cuda.get_device_name(0) if cuda else "cpu",
+        "device": torch.cuda.get_device_name(dev) if cuda else "cpu",
         "rays": int(start.shape[0]), "patches": patches.num_patches, "runs": runs,
         "stages_forward": stages,
         "forward_ms": forward_ms, "step_ms": step_ms,
@@ -202,9 +211,11 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--res", type=int, default=512, help="ray grid side")
     ap.add_argument("--runs", type=int, default=5)
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (the default; raises without a card) or cpu")
     ap.add_argument("--out", default="", help="also write the result here (JSON)")
     args = ap.parse_args(argv)
-    result = run_profile(args.res, args.runs)
+    result = run_profile(args.res, args.runs, args.device)
     for label, s in result["stages_forward"].items():
         dev_ms = "not measured" if s["device_ms"] is None else f"{s['device_ms']:.3f} ms"
         print(f"{label:20s} calls {s['calls']}  device {dev_ms}  host {s['host_ms']:.3f} ms")

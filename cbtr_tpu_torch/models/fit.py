@@ -12,11 +12,12 @@ from ..render.emitters import UniformHemisphere
 
 
 def emitter_rays(n_rays: int, belts: int = 16, seed: int = 0,
-                 origin=(0.0, 0.0, 0.0), device="cpu"):
+                 origin=(0.0, 0.0, 0.0), device="cuda"):
     """Point-source hemisphere ray set, sorted by the reference's belt/patch
     bin (reference/hostUtil.cpp:9-13) so the sweep kernels' cull sees
     coherent 128-ray tiles.  Returns (start [n,3], direction [n,3]) f32
-    tensors on `device`, bit-identical to the JAX package's arrays."""
+    tensors on `device` (the card unless the caller passes "cpu"),
+    bit-identical to the JAX package's arrays."""
     d, patch = UniformHemisphere(belts=belts, seed=seed).sample(n_rays)
     order = np.argsort(patch, kind="stable")
     direction = torch.as_tensor(d[order], device=device)

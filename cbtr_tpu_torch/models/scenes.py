@@ -88,20 +88,20 @@ def _finish(mesh: TriMesh, res: int, beam_width: float,
 
 
 def sphere_lens_scene(res: int = 128, sectors: int = 15, belts: int = 7,
-                      refractive_index: float = 1.3, device="cpu") -> LensScene:
+                      refractive_index: float = 1.3, device="cuda") -> LensScene:
     return _finish(preprocess(make_unit_sphere(sectors, belts)), res,
                    SPHERE_BEAM_WIDTH, refractive_index, device)
 
 
 def ellipsoid_lens_scene(res: int = 128, sectors: int = 15, belts: int = 5,
-                         refractive_index: float = 1.3, device="cpu",
+                         refractive_index: float = 1.3, device="cuda",
                          dtype=torch.float32) -> LensScene:
     mesh = preprocess(make_ellipsoid(sectors, belts, (1.0, 4.0, 2.0)))
     return _finish(mesh, res, ELLIPSOID_BEAM_WIDTH, refractive_index, device, dtype)
 
 
 def dimpled_lens_scene(res: int = 128, sectors: int = 21, belts: int = 15,
-                       refractive_index: float = 1.3, device="cpu",
+                       refractive_index: float = 1.3, device="cuda",
                        dtype=torch.float32) -> LensScene:
     mesh = preprocess(make_dimpled_solid(sectors, belts, (1.0, 4.0, 2.0)))
     return _finish(mesh, res, ELLIPSOID_BEAM_WIDTH, refractive_index, device, dtype)
@@ -109,10 +109,11 @@ def dimpled_lens_scene(res: int = 128, sectors: int = 21, belts: int = 15,
 
 def robot_lens_scene(res: int = 128, refractive_index: float = 1.3,
                      path: Optional[str] = None, refine: bool = False,
-                     split: int = 0, device="cpu",
+                     split: int = 0, device="cuda",
                      dtype=torch.float32) -> LensScene:
     """The free-form robot.stl fixture as a lens (450 patches).  dtype is the
-    patch tables' type (float64 gives a reference build).
+    patch tables' type (float64 gives a reference build).  Every scene is
+    built on the card unless the caller passes device="cpu".
 
     refine=True runs one adaptive thick-patch split pass first (1800
     patches; the workflow reference/test.cpp:473-494 stops short of);

@@ -10,8 +10,11 @@ lowest patch id on ties, without materialising per-pair state.
 The candidate set is defined at (128-ray tile x 16-patch block)
 granularity, as on the TPU:
 
-* `tile_block_lists` lists, per tile, the ascending ids of the blocks whose
-  merged bounding sphere AND union AABB some ray of the tile hits;
+* a block is listed for a tile when some ray of the tile hits its merged
+  bounding sphere AND its union AABB (`block_bounds`); the kernels cull for
+  their own tile (csrc/block_walk.cuh), the plain twins read the same test
+  from `tile_block_lists`, and `tile_bitmap_reference` is the kernels' cull
+  in plain torch;
 * inside a listed block, the block is evaluated for all 128 rays when ANY
   (patch, ray) pair of block x tile passes the per-patch sphere test;
 * pairs of unlisted or ungated blocks produce no candidate (code
@@ -141,9 +144,37 @@ def _pad_rows(x, rows: int):
     return torch.cat([x, x.new_zeros((rows - x.shape[0],) + x.shape[1:])])
 
 
+# columns of the [B, 12] block-bounds table (`block_bounds`): centre 0-2
+_BND_RADIUS, _BND_LO, _BND_HI = 3, 4, 7
+_N_BOUNDS = 12
+
+
+def block_bounds(patches: BezierPatches, block_p: int = BLOCK_P, spheres=None):
+    """[B, 12] f32 per block_p-patch block of the padded table (B = P_pad /
+    block_p): merged sphere centre xyz and radius (cols 0-3, radius < 0 for
+    an all-padding block), union of the patches' AABBs lo xyz (4-6) and hi
+    xyz (7-9), 2 zero pad columns.  The one table every cull reads: the
+    kernels' own (csrc/block_walk.cuh), `tile_block_lists` and
+    `tile_bitmap_reference`.  spheres: `patch_spheres(patches)`, where the
+    caller has them already."""
+    center, radius = patch_spheres(patches) if spheres is None else spheres
+    P = patches.num_patches
+    P_pad = P + (-P) % _PATCH_PAD
+    lo, hi = _patch_boxes(patches.control_points, center, radius)
+    center, radius = _pad_rows(center, P_pad), _pad_rows(radius, P_pad)
+    lo, hi = _pad_rows(lo, P_pad), _pad_rows(hi, P_pad)
+    c, r = _block_spheres_cr(center, radius, block_p)
+    real = (radius > 0.0).reshape(-1, block_p)[..., None]           # [B, block_p, 1]
+    lob = torch.where(real, lo.reshape(-1, block_p, 3), torch.inf).amin(dim=1)
+    hib = torch.where(real, hi.reshape(-1, block_p, 3), -torch.inf).amax(dim=1)
+    return torch.cat([c, r[:, None], lob, hib, c.new_zeros((c.shape[0], 2))],
+                     dim=-1).to(torch.float32).contiguous()
+
+
 def tile_block_lists(patches: BezierPatches, rays_t, block_p: int = BLOCK_P,
                      use_aabb: bool = True):
-    """Per-128-ray-tile candidate block lists.
+    """Per-128-ray-tile candidate block lists, the JAX package's
+    (`pallas_sweep.tile_block_lists`), from `block_bounds`.
 
     rays_t [8, R_pad] (rows sx, sy, sz, dx, dy, dz, 0, 0).  Returns
     (counts [T] i32, lists [B, T] i32) with B = P_pad / block_p:
@@ -151,19 +182,12 @@ def tile_block_lists(patches: BezierPatches, rays_t, block_p: int = BLOCK_P,
     union-of-patch-AABBs are hit by at least one ray of tile t, ascending.
     use_aabb=False drops the AABB leg (the sphere-only cull, for the bench's
     cull A/B).  A dense [rays, B] test in chunks of whole tiles (about
-    _LIST_CHUNK_PAIRS ray-block pairs each), then a stable sort."""
-    center, radius = patch_spheres(patches)
-    P = patches.num_patches
-    P_pad = P + (-P) % _PATCH_PAD
-    lo, hi = _patch_boxes(patches.control_points, center, radius)
-    center, radius = _pad_rows(center, P_pad), _pad_rows(radius, P_pad)
-    lo, hi = _pad_rows(lo, P_pad), _pad_rows(hi, P_pad)
-
-    c, r = _block_spheres_cr(center, radius, block_p)   # [B,3], [B]
+    _LIST_CHUNK_PAIRS ray-block pairs each), then a stable sort.  The plain
+    twins and K3 read their lists here; K1 and K2 cull inside the kernel."""
+    bounds = block_bounds(patches, block_p)
+    c, r = bounds[:, :3], bounds[:, _BND_RADIUS]
+    lob, hib = bounds[:, _BND_LO:_BND_LO + 3], bounds[:, _BND_HI:_BND_HI + 3]
     B = c.shape[0]
-    real = (radius > 0.0).reshape(-1, block_p)          # [B, block_p]
-    lob = torch.where(real[..., None], lo.reshape(-1, block_p, 3), torch.inf).amin(dim=1)
-    hib = torch.where(real[..., None], hi.reshape(-1, block_p, 3), -torch.inf).amax(dim=1)
     r2 = (r * r)[None, :]
     chunk = max(1, _LIST_CHUNK_PAIRS // (B * TILE_R)) * TILE_R
     tile_hit = []
@@ -185,12 +209,48 @@ def tile_block_lists(patches: BezierPatches, rays_t, block_p: int = BLOCK_P,
     return counts, lists.T.contiguous().to(torch.int32)
 
 
-def pack_patch_table(patches: BezierPatches) -> torch.Tensor:
+def tile_bitmap_reference(bounds, rays_t, use_aabb: bool = True):
+    """Plain version of the kernels' in-kernel cull (csrc/block_walk.cuh
+    cull_tile): bounds [B, 12] (`block_bounds`), rays_t [8, R_pad] ->
+    [T, B] bool, block b listed for tile t.  The kernel's expressions in its
+    order, one (ray, block) at a time: the sphere test, then the slab test
+    with one reciprocal per ray and axis and the min/max folded over x, y,
+    z.  Equal to `listed_blocks(*tile_block_lists(...))`; rays go in chunks
+    of whole tiles."""
+    B = bounds.shape[0]
+    chunk = max(1, _LIST_CHUNK_PAIRS // (B * TILE_R)) * TILE_R
+    b = [bounds[None, :, k] for k in range(_N_BOUNDS)]               # [1, B] each
+    tiles = []
+    for r0 in range(0, rays_t.shape[1], chunk):
+        sx, sy, sz, dx, dy, dz = (rays_t[k, r0:r0 + chunk, None] for k in range(6))
+        relx, rely, relz = b[0] - sx, b[1] - sy, b[2] - sz
+        t_ca = relx * dx + rely * dy + relz * dz
+        rel2 = relx * relx + rely * rely + relz * relz
+        r2 = b[3] * b[3]
+        hit = ((rel2 - t_ca * t_ca) <= r2) & ((t_ca >= 0.0) | (rel2 <= r2)) & (b[3] >= 0.0)
+        if use_aabb:
+            near = far = None
+            for axis, (s, d) in enumerate(((sx, dx), (sy, dy), (sz, dz))):
+                d_safe = torch.where(d.abs() < 1e-30,
+                                     torch.where(d < 0.0, -1e-30, 1e-30), d)
+                inv = 1.0 / d_safe
+                t1 = (b[_BND_LO + axis] - s) * inv
+                t2 = (b[_BND_HI + axis] - s) * inv
+                lo_t, hi_t = torch.minimum(t1, t2), torch.maximum(t1, t2)
+                near = lo_t if near is None else torch.maximum(near, lo_t)
+                far = hi_t if far is None else torch.minimum(far, hi_t)
+            hit = hit & (far >= 0.0) & (near <= far)
+        tiles.append(hit.reshape(-1, TILE_R, B).any(dim=1))
+    return torch.cat(tiles)
+
+
+def pack_patch_table(patches: BezierPatches, spheres=None) -> torch.Tensor:
     """Row-major [P_pad, 64] f32 feature table (layout: the _ROW_* columns);
     padding rows are all zero (zero normal -> WHAT_NONE, radius 0 -> never
-    listed)."""
+    listed).  spheres: `patch_spheres(patches)`, where the caller has them
+    already."""
     P = patches.num_patches
-    center, radius = patch_spheres(patches)
+    center, radius = patch_spheres(patches) if spheres is None else spheres
     rows = torch.cat(
         [
             patches.control_points.reshape(P, 30),
@@ -315,6 +375,8 @@ NVCC_FLAGS = [
     # arithmetic stays bit-identical to the plain twins' separate torch ops
     "-fmad=false", "-prec-sqrt=true", "-prec-div=true",
     "-shared", "-Xcompiler", "-fPIC",
+    # registers, shared memory and spills of every kernel (build_library's output)
+    "-Xptxas", "-v",
 ]
 
 # every loaded kernel library by source stem (`load_library`)
@@ -342,8 +404,8 @@ def build_library() -> str:
     """Compile each csrc/*.cu with NVCC_FLAGS into a library of its own
     (`library_path`), where it is missing or older than its source or a
     header: one nvcc per source, all started together.  Returns nvcc's
-    output (empty when every library was up to date); raises if any build
-    fails."""
+    output, each source's under a "== <source>" line (empty when every
+    library was up to date); raises if any build fails."""
     sources = sorted(glob.glob(os.path.join(_CSRC_DIR, "*.cu")))
     newest_header = max((os.path.getmtime(f) for f in
                          glob.glob(os.path.join(_CSRC_DIR, "*.cuh"))), default=0.0)
@@ -366,7 +428,7 @@ def build_library() -> str:
             failed.append(f"nvcc failed on {src} ({proc.returncode}):\n{err}")
         else:
             os.replace(tmp, lib_path)
-            logs.append(out + err)
+            logs.append(f"== {os.path.basename(src)}\n{out}{err}")
     if failed:
         raise RuntimeError("\n".join(failed))
     return "".join(logs)
@@ -390,6 +452,22 @@ def load_library(stem: str, argtypes) -> ctypes.CDLL:
         return _libraries[stem]
 
 
+# cbtr_sweep_select's and cbtr_winner's parameters: 9 pointers, T, P, P_pad,
+# block_p, use_aabb, iterations, 4 tolerances, clamp_secant, the stream
+_ENTRY_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_float] * 4
+                   + [ctypes.c_int, ctypes.c_void_p])
+
+
+def occupancy(stem: str, P_pad: int) -> int:
+    """CTAs of K1 ("sweep_select") or K2 ("winner") one SM holds at a table
+    of P_pad rows: the device's answer for the build's registers and the
+    launch's shared memory (a negative CUDA error code on failure)."""
+    lib = load_library(stem, _ENTRY_ARGTYPES)
+    entry = getattr(lib, f"cbtr_{stem}_occupancy")
+    entry.restype, entry.argtypes = ctypes.c_int, [ctypes.c_int, ctypes.c_int]
+    return entry(P_pad, BLOCK_P)
+
+
 def _check(t: torch.Tensor, name: str, dtype, shape, device):
     if t.device != device or t.dtype != dtype or tuple(t.shape) != tuple(shape) \
             or not t.is_contiguous():
@@ -401,74 +479,93 @@ def _check(t: torch.Tensor, name: str, dtype, shape, device):
 
 @dataclasses.dataclass(frozen=True)
 class KernelInputs:
-    """Everything one launch of K1 reads, built by `prepare_inputs`."""
+    """Everything one launch of K1 or K2 reads, built by `prepare_inputs`."""
 
-    counts: torch.Tensor    # [T] i32 listed blocks per tile
-    lists: torch.Tensor     # [B, T] i32 listed block ids, ascending
     rays_t: torch.Tensor    # [8, R_pad] f32
     patch_t: torch.Tensor   # [P_pad, 64] f32
+    bounds: torch.Tensor    # [P_pad / BLOCK_P, 12] f32 (`block_bounds`)
     nb: torch.Tensor        # [P_pad, 3] i32 neighbour ids, -1 on padding
     num_patches: int
+    use_aabb: bool = True   # the cull's AABB leg (`tile_block_lists`)
+
+
+@dataclasses.dataclass(frozen=True)
+class KernelOutputs:
+    """What one launch of K1 or K2 writes (`launch`)."""
+
+    dist: torch.Tensor      # [R_pad] f32 winning distance, BIG (3.4e38) on a miss
+    win: torch.Tensor       # [R_pad] i32 winning patch, 0 on a miss
+    counts: torch.Tensor    # [T] i32 blocks the tile's cull listed
+    lists: torch.Tensor | None = None   # [B, T] i32: lists[:counts[t], t] ascending
+    pairs: torch.Tensor | None = None   # [T, 2] i32: pass-1 pairs, retries evaluated
 
 
 def prepare_inputs(patches: BezierPatches, start, direction,
                    use_aabb: bool = True) -> KernelInputs:
-    """The kernel's tables (plain tensor ops on the rays' device); use_aabb
-    as in `tile_block_lists`."""
+    """The kernel's tables (plain tensor ops on the rays' device): rays,
+    patch table, block bounds (one `patch_spheres` for both), neighbours;
+    use_aabb as in `tile_block_lists`.  No lists: the kernels cull for
+    themselves."""
     device = start.device
     if patches.device != device or direction.device != device:
         raise ValueError("patches, start and direction must share one device")
     P = patches.num_patches
     rays_t = pad_rays(start.to(torch.float32), direction.to(torch.float32))
-    patch_t = pack_patch_table(patches)
+    spheres = patch_spheres(patches)
+    patch_t = pack_patch_table(patches, spheres)
+    bounds = block_bounds(patches, BLOCK_P, spheres)
     nb = torch.full((patch_t.shape[0], 3), -1, dtype=torch.int32, device=device)
     nb[:P] = patches.neighbours.to(torch.int32)
-    counts, lists = tile_block_lists(patches, rays_t, use_aabb=use_aabb)
-    return KernelInputs(counts, lists, rays_t, patch_t, nb, P)
+    return KernelInputs(rays_t, patch_t, bounds, nb, P, use_aabb)
 
 
 def check_inputs(inputs: KernelInputs, kernel: str):
     """Raise unless `inputs` are tables a kernel takes: CUDA tensors of the
     shapes, types and layout `prepare_inputs` gives.  Returns (T, P_pad)."""
     device = inputs.rays_t.device
-    R_pad, P_pad = inputs.rays_t.shape[1], inputs.patch_t.shape[0]
-    T, B = R_pad // TILE_R, P_pad // BLOCK_P
-    if device.type != "cuda":
-        raise ValueError(f"{kernel} runs on CUDA tensors, got {device}; on the "
-                         "CPU its plain twin computes the same function")
+    R_pad, P_pad = inputs.rays_t.shape[-1], inputs.patch_t.shape[0]
     if R_pad % TILE_R or P_pad % _PATCH_PAD or not 0 < inputs.num_patches <= P_pad:
         raise ValueError(f"unsupported shape: P = {inputs.num_patches}, "
                          f"R_pad = {R_pad}, P_pad = {P_pad}")
     for t, name, dtype, shape in (
-        (inputs.counts, "counts", torch.int32, (T,)),
-        (inputs.lists, "lists", torch.int32, (B, T)),
         (inputs.rays_t, "rays_t", torch.float32, (8, R_pad)),
         (inputs.patch_t, "patch_t", torch.float32, (P_pad, _N_ROWS)),
+        (inputs.bounds, "bounds", torch.float32, (P_pad // BLOCK_P, _N_BOUNDS)),
         (inputs.nb, "neighbours", torch.int32, (P_pad, 3)),
     ):
         _check(t, name, dtype, shape, device)
-    return T, P_pad
+    if device.type != "cuda":
+        raise ValueError(f"{kernel} runs on CUDA tensors, got {device}; on the "
+                         "CPU its plain twin computes the same function")
+    return R_pad // TILE_R, P_pad
 
 
-def launch(inputs: KernelInputs):
-    """One launch of K1 on the current stream: (win_dist [R_pad] f32,
-    win [R_pad] i32), BIG (3.4e38) and 0 for a miss."""
-    T, P_pad = check_inputs(inputs, "K1")
-    if inputs.num_patches > _FUSED_MAX_P:
-        raise ValueError(f"K1 takes at most {_FUSED_MAX_P} patches, got "
-                         f"{inputs.num_patches}")
-    device, R_pad = inputs.rays_t.device, T * TILE_R
-    dist = torch.empty(R_pad, dtype=torch.float32, device=device)
-    idx = torch.empty(R_pad, dtype=torch.int32, device=device)
+def launch_kernel(stem: str, inputs: KernelInputs, lists: bool = False,
+                  pairs: bool = False) -> KernelOutputs:
+    """One launch of K1 (stem "sweep_select") or K2 ("winner") on the current
+    stream over tables from `prepare_inputs`.  lists / pairs also fill the
+    per-tile lists and pair counts (for checks; the main path asks for
+    neither).  Every launch adds one to its wrapper's count
+    (`sweep_select.launches`, `cuda_winner.sweep_winner.launches`)."""
+    T, P_pad = check_inputs(inputs, "K1" if stem == "sweep_select" else "K2")
+    device, R_pad, B = inputs.rays_t.device, T * TILE_R, P_pad // BLOCK_P
+    out = KernelOutputs(
+        dist=torch.empty(R_pad, dtype=torch.float32, device=device),
+        win=torch.empty(R_pad, dtype=torch.int32, device=device),
+        counts=torch.empty(T, dtype=torch.int32, device=device),
+        lists=torch.full((B, T), -1, dtype=torch.int32, device=device) if lists else None,
+        pairs=torch.zeros((T, 2), dtype=torch.int32, device=device) if pairs else None)
 
-    vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib = load_library("sweep_select", [vp] * 7 + [ci] * 5 + [cf] * 4 + [ci, vp])
+    lib = load_library(stem, _ENTRY_ARGTYPES)
+    entry = getattr(lib, f"cbtr_{stem}")
     with torch.cuda.device(device):
-        rc = lib.cbtr_sweep_select(
-            inputs.counts.data_ptr(), inputs.lists.data_ptr(),
+        rc = entry(
             inputs.rays_t.data_ptr(), inputs.patch_t.data_ptr(),
-            inputs.nb.data_ptr(), dist.data_ptr(), idx.data_ptr(),
-            T, inputs.num_patches, P_pad, BLOCK_P,
+            inputs.bounds.data_ptr(), inputs.nb.data_ptr(),
+            out.dist.data_ptr(), out.win.data_ptr(), out.counts.data_ptr(),
+            out.lists.data_ptr() if lists else None,
+            out.pairs.data_ptr() if pairs else None,
+            T, inputs.num_patches, P_pad, BLOCK_P, int(inputs.use_aabb),
             int(CFG.root_search_iterations),
             CFG.ray_plane_intersection_epsilon,
             CFG.intersection_estimation_epsilon,
@@ -478,11 +575,18 @@ def launch(inputs: KernelInputs):
             torch.cuda.current_stream(device).cuda_stream,
         )
     if rc != 0:
-        raise RuntimeError(
-            f"sweep_select kernel launch failed: "
-            f"{lib.cbtr_cuda_error_string(rc).decode()} ({rc})")
-    sweep_select.launches += 1
-    return dist, idx
+        raise RuntimeError(f"{stem} kernel launch failed: "
+                           f"{lib.cbtr_cuda_error_string(rc).decode()} ({rc})")
+    _counted[stem].launches += 1
+    return out
+
+
+def launch(inputs: KernelInputs, lists: bool = False, pairs: bool = False) -> KernelOutputs:
+    """One launch of K1 (`launch_kernel`); at most _FUSED_MAX_P patches."""
+    if inputs.num_patches > _FUSED_MAX_P:
+        raise ValueError(f"K1 takes at most {_FUSED_MAX_P} patches, got "
+                         f"{inputs.num_patches}")
+    return launch_kernel("sweep_select", inputs, lists, pairs)
 
 
 def sweep_select(patches: BezierPatches, start, direction, use_aabb: bool = True):
@@ -496,10 +600,13 @@ def sweep_select(patches: BezierPatches, start, direction, use_aabb: bool = True
     kernel's launches."""
     if not start.is_cuda:
         return sweep_select_reference(patches, start, direction, use_aabb=use_aabb)
-    dist, idx = launch(prepare_inputs(patches, start, direction, use_aabb))
+    out = launch(prepare_inputs(patches, start, direction, use_aabb))
     R = start.shape[0]
-    best = dist[:R]
-    return best < _BIG_F * 0.5, idx[:R], best
+    best = out.dist[:R]
+    return best < _BIG_F * 0.5, out.win[:R], best
 
 
 sweep_select.launches = 0
+# the wrapper whose `launches` counts each kernel's launches, by source stem
+# (cuda_winner adds K2's)
+_counted = {"sweep_select": sweep_select}

@@ -9,7 +9,7 @@ of reference/bezierMesh.cpp:206-227's scan with one forward retry:
 (any_hit [R] bool, win [R] i32, win_dist [R] f32), min distance, lowest
 patch id on ties.
 
-Blocks, lists and the gate are K1's (cuda_sweep.py).  The retry rule is the
+Blocks, cull and gate are K1's (cuda_sweep.py).  The retry rule is the
 TPU winner kernel's, not K1's: a voter p of an evaluated block whose gate-ON
 result is cFollowSide_s contributes q = neighbours[p, s] (clipped to
 [0, P), as `pack_winner_tables` clips) when q's gate-OFF result is
@@ -19,7 +19,8 @@ block was evaluated for the tile.
 The TPU kernel chunks patches at 4096 rows and rays at its SMEM list budget
 and reads neighbour rows from permuted copies of the table; all three are
 TPU memory workarounds that change no candidate.  K2 takes the whole table
-and all lists in one launch and reads q's row through its id.
+in one launch, culls each tile's blocks itself and reads q's row through
+its id.
 
 `sweep_winner` launches csrc/winner.cu for CUDA tensors and calls
 `sweep_winner_reference` for CPU tensors; it never falls back from one to
@@ -27,13 +28,11 @@ the other.
 """
 from __future__ import annotations
 
-import ctypes
 import dataclasses
 
 import torch
 
 from ..bezier.patches import BezierPatches
-from ..config import DEFAULT as CFG
 from . import cuda_sweep as cs
 from . import intersect as ix
 
@@ -93,37 +92,11 @@ def prepare_inputs(patches: BezierPatches, start, direction,
     return dataclasses.replace(inputs, nb=inputs.nb.clamp(0, inputs.num_patches - 1))
 
 
-def launch(inputs: cs.KernelInputs):
+def launch(inputs: cs.KernelInputs, lists: bool = False,
+           pairs: bool = False) -> cs.KernelOutputs:
     """One launch of K2 on the current stream over tables from
-    `prepare_inputs`: (win_dist [R_pad] f32, win [R_pad] i32), BIG (3.4e38)
-    and 0 for a miss."""
-    T, _ = cs.check_inputs(inputs, "K2")
-    device, R_pad = inputs.rays_t.device, T * cs.TILE_R
-    dist = torch.empty(R_pad, dtype=torch.float32, device=device)
-    idx = torch.empty(R_pad, dtype=torch.int32, device=device)
-
-    vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib = cs.load_library("winner", [vp] * 7 + [ci] * 4 + [cf] * 4 + [ci, vp])
-    with torch.cuda.device(device):
-        rc = lib.cbtr_winner(
-            inputs.counts.data_ptr(), inputs.lists.data_ptr(),
-            inputs.rays_t.data_ptr(), inputs.patch_t.data_ptr(),
-            inputs.nb.data_ptr(), dist.data_ptr(), idx.data_ptr(),
-            T, inputs.num_patches, cs.BLOCK_P,
-            int(CFG.root_search_iterations),
-            CFG.ray_plane_intersection_epsilon,
-            CFG.intersection_estimation_epsilon,
-            CFG.max_intersection_distance_from_ray,
-            CFG.minimal_ray_distance,
-            int(CFG.clamp_secant_estimate),
-            torch.cuda.current_stream(device).cuda_stream,
-        )
-    if rc != 0:
-        raise RuntimeError(
-            f"winner kernel launch failed: "
-            f"{lib.cbtr_cuda_error_string(rc).decode()} ({rc})")
-    sweep_winner.launches += 1
-    return dist, idx
+    `prepare_inputs` (`cuda_sweep.launch_kernel`)."""
+    return cs.launch_kernel("winner", inputs, lists, pairs)
 
 
 def sweep_winner(patches: BezierPatches, start, direction, use_aabb: bool = True):
@@ -135,10 +108,11 @@ def sweep_winner(patches: BezierPatches, start, direction, use_aabb: bool = True
     `sweep_winner.launches` counts the kernel's launches."""
     if not start.is_cuda:
         return sweep_winner_reference(patches, start, direction, use_aabb)
-    dist, idx = launch(prepare_inputs(patches, start, direction, use_aabb))
+    out = launch(prepare_inputs(patches, start, direction, use_aabb))
     R = start.shape[0]
-    best = dist[:R]
-    return best < cs._BIG_F * 0.5, idx[:R], best
+    best = out.dist[:R]
+    return best < cs._BIG_F * 0.5, out.win[:R], best
 
 
 sweep_winner.launches = 0
+cs._counted["winner"] = sweep_winner

@@ -6,7 +6,8 @@ checks them:
 
 * the headline: robot.stl lens, 450 patches, 512x512 collimated rays, 128x128
   image, render and SGD train step (forward + backward), through K1
-  (cbtr_tpu_torch/csrc/sweep_select.cu);
+  (cbtr_tpu_torch/csrc/sweep_select.cu), which culls each tile's blocks
+  itself (csrc/block_walk.cuh, shared with K2);
 * the large-P lenses above the fused path's 1024 patches, through K2
   (cbtr_tpu_torch/csrc/winner.cu): the refined robot (1800 patches) renders
   and trains at 512^2 rays, the split robots (7200 and 16,200 patches) and the
@@ -18,28 +19,38 @@ checks them:
 Phases:
 
   0  a CUDA device (exit 1 without one), the card, the versions, the build
-     of every kernel (one nvcc per source, in parallel)
+     of every kernel (one nvcc per source, in parallel) with each kernel's
+     registers and spills (ptxas), K1's and K2's CTAs per SM
   1  the headline scene, built by the port's own host stage
-  2  K1 against its plain twin at the full shape, the lowest-id tie rule
+  2  K1 against its plain twin at the full shape, the lowest-id tie rule;
+     K1's per-tile counts and lists (its in-kernel cull) against the host
+     list builder `tile_block_lists`, with and without the AABB leg, and
+     its pass-1 pairs against `evaluated_pairs`
   3  the render on K1 and on the plain twin
   4  three SGD train steps (the headline path; launch counts reset before
-     it); the loss must fall
-  5  timings: CUDA events, median of 7 windows after warm-up
+     it, `tile_block_lists` counted: the GPU path never calls it); the
+     loss must fall
+  5  timings: CUDA events, median of 7 windows after warm-up; the rays of
+     the step's second refraction, K1's lists and time there; both passes'
+     evaluated pairs and K1's bound
   6  determinism: the headline gradient twice at one lens (the backward's
      atomics may move its last bits)
   a  refined robot, P = 1800, 512^2: the routing (K2, never K1, above 1024
-     patches), K2 against its twin on every ray, the render on K2 and on
-     the twin, three SGD steps (the large-P path; counts reset before it),
-     forward and fixed-lens step times
+     patches), K2 against its twin on every ray and its lists against the
+     host builder's, the render on K2 and on the twin, three SGD steps (the
+     large-P path; counts reset before it, no `tile_block_lists` call),
+     forward and fixed-lens step times, both passes' pairs and K2's bound
   b  split-4 robot, P = 7200, 512^2: K2 on the full grid against the twin on
-     256 whole tiles spread over it; render time
-  c  split-6 robot, P = 16,200, 256^2: K2 against the twin on every ray;
-     intersect time
-  d  dimpled solid, P = 1890, 256^2: K2 against the twin on every ray
+     256 whole tiles spread over it, its lists on the full grid; render time
+  c  split-6 robot, P = 16,200, 256^2: K2 against the twin on every ray, its
+     lists; intersect time
+  d  dimpled solid, P = 1890, 256^2: K2 against the twin on every ray, its
+     lists
   e  K1 against K2 on the same inputs at P = 450 (robot 512^2), P = 1020
      (sphere 17 x 10, 256^2) and P = 1800 (K1's twin): the rays on which
      they differ and which one the unculled reference agrees with; both
-     kernels' times
+     kernels' times; at P = 1020 both kernels against their twins and their
+     lists against the host builder's
   f  K3 against its twin at 65,536 x 450 (the bench's breakdown shape) and
      65,536 x 1800 (refined): codes on every pair, distances bit-equal on
      every cIntersect pair (the other pairs counted); the staged winners
@@ -52,21 +63,36 @@ Phases:
   h  `python -m cbtr_tpu_torch.bench --preset smoke` in a subprocess: its
      last line parses and holds the headline keys; its launch counts (reset
      at the bench's start, read at its end) show K1, K3 and K4 launched
+  i  with --against DIR (the root of another checkout, e.g. an earlier
+     commit unpacked by `git archive`): that checkout against this one, each
+     in fresh processes, in turns (DIR, this, this, DIR): K1, K2 and K3
+     alone, their tables, both together and the host list builder, at
+     262,144 x 450 (both refraction passes), 262,144 x 1800, split-4 512^2,
+     split-6 256^2 and K3's 65,536 x 450 and x 1800, their winners the same
+     in every run; the headline and refined fixed-lens train steps; the
+     in-kernel cull alone, on rays turned away from the lens
+     (harness/kernel_ab.py)
 
 One line per phase, then the kernel table as JSON, the card's name and
 power limit, and last {"ok": true, "device": {...}}.  Any failure raises
 and exits non-zero.  Run from the repository root:
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--against DIR]
 """
 from __future__ import annotations
 
+import argparse
+import contextlib
 import json
 import os
-import statistics
 import subprocess
 import sys
 import time
+
+# the least time of the card (H100 SXM, NVIDIA's data sheet): f32
+# outside the tensor cores, memory
+PEAK_F32_FLOPS = 67e12
+PEAK_BYTES_PER_S = 3.35e12
 
 
 def _card() -> str:
@@ -77,24 +103,12 @@ def _card() -> str:
     return out[0].strip()
 
 
-def _time_ms(fn, windows: int = 7, inner: int = 3, warmup: int = 2) -> float:
-    """Median over `windows` of the mean time of `inner` calls (CUDA events)."""
-    import torch
+def _time_ms(*args, **kwargs) -> float:
+    """`harness/kernel_ab.time_ms`: median over windows of the mean time of
+    a few calls (CUDA events)."""
+    from cbtr_tpu_torch.harness.kernel_ab import time_ms
 
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(windows):
-        t0 = torch.cuda.Event(enable_timing=True)
-        t1 = torch.cuda.Event(enable_timing=True)
-        t0.record()
-        for _ in range(inner):
-            fn()
-        t1.record()
-        torch.cuda.synchronize()
-        times.append(t0.elapsed_time(t1) / inner)
-    return statistics.median(times)
+    return time_ms(*args, **kwargs)
 
 
 def _compare(got, ref):
@@ -122,25 +136,31 @@ def _assert_exact(name, cmp):
 
 
 def _train(lens_model, scene, launches_of, learning_rate):
-    """Three SGD steps with every launch count reset just before them:
-    returns (losses, |grad cp| max, grad n, {kernel: launches})."""
+    """Three SGD steps with every launch count reset just before them and
+    the host list builder's calls counted: returns (losses, |grad cp| max,
+    grad n, {kernel: launches}); fails if the steps called the builder."""
     import torch
+
+    from cbtr_tpu_torch.ops import cuda_sweep as cs
 
     target = torch.zeros((128, 128), dtype=torch.float32, device=scene.start.device)
     step = lens_model.make_train_step(scene.screen_plane, target, resolution=128,
                                       learning_rate=learning_rate)
     params = lens_model.params_from_scene(scene)
-    for counted in launches_of.values():
-        counted.launches = 0
     losses = []
-    for _ in range(3):
-        params, loss = step(params, scene.start, scene.direction)
-        torch.cuda.synchronize()
-        g = params.control_points.grad
-        assert torch.isfinite(loss) and torch.isfinite(g).all()
-        assert float(g.abs().max()) > 0 and torch.isfinite(params.refractive_index.grad)
-        losses.append(float(loss))
-    launches = {k: v.launches for k, v in launches_of.items()}
+    with _list_builder_calls(cs) as builder_calls:
+        for counted in launches_of.values():
+            counted.launches = 0
+        for _ in range(3):
+            params, loss = step(params, scene.start, scene.direction)
+            torch.cuda.synchronize()
+            g = params.control_points.grad
+            assert torch.isfinite(loss) and torch.isfinite(g).all()
+            assert float(g.abs().max()) > 0 and torch.isfinite(params.refractive_index.grad)
+            losses.append(float(loss))
+        launches = {k: v.launches for k, v in launches_of.items()}
+    assert builder_calls[0] == 0, builder_calls
+    launches["tile_block_lists"] = builder_calls[0]
     assert losses[2] < losses[0], losses
     return losses, float(g.abs().max()), float(params.refractive_index.grad), launches
 
@@ -157,8 +177,79 @@ def _fixed_step_ms(lens_model, scene):
     return _time_ms(lambda: step(params, scene.start, scene.direction), windows=7, inner=2)
 
 
+def _flop_per_pair() -> float:
+    """The sweep's cost model (pallas_sweep.py:737; bench.py): 1300 FLOP per
+    4 Newton iterations + 400."""
+    from cbtr_tpu_torch.config import DEFAULT as CFG
+
+    return 1300.0 * CFG.root_search_iterations / 4 + 400.0
+
+
+def _bound_ms(flops: float, nbytes: float):
+    """(bound in ms, "operations" or "bytes"): the larger of the two times."""
+    t_ops, t_bytes = flops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def _winner_bound(inputs, pairs):
+    """Bound of one K1/K2 call: its evaluated pairs (pass 1 + retries, counted
+    by the kernel) at the cost model, against its tables read once and 8
+    bytes a ray written."""
+    nbytes = sum(t.numel() * t.element_size() for t in
+                 (inputs.rays_t, inputs.patch_t, inputs.bounds, inputs.nb))
+    nbytes += 8 * inputs.rays_t.shape[1] + 4 * (inputs.rays_t.shape[1] // 128)
+    return _bound_ms(pairs * _flop_per_pair(), nbytes)
+
+
+def _check_lists(cs, cw, stem, patches, start, direction, use_aabb=True):
+    """The kernel's in-kernel cull against the host list builder: per-tile
+    counts equal, lists[:counts[t], t] equal; its pass-1 pairs against
+    `evaluated_pairs`.  Returns (inputs, listed fraction, pass-1 pairs, retries)."""
+    import torch
+
+    prepare = cw.prepare_inputs if stem == "winner" else cs.prepare_inputs
+    inputs = prepare(patches, start, direction, use_aabb)
+    out = cs.launch_kernel(stem, inputs, lists=True, pairs=True)
+    counts, lists = cs.tile_block_lists(patches, inputs.rays_t, use_aabb=use_aabb)
+    torch.cuda.synchronize()
+    B, T = lists.shape
+    assert torch.equal(out.counts, counts), (stem, patches.num_patches)
+    mask = torch.arange(B, device=counts.device)[:, None] < counts[None, :]
+    assert torch.equal(out.lists[mask], lists[mask]), (stem, patches.num_patches)
+    listed = cs.listed_blocks(counts, lists, inputs.patch_t.shape[0])
+    P = patches.num_patches
+    pass1 = 0
+    tiles_per_chunk = max(1, (1 << 27) // (cs.TILE_R * inputs.patch_t.shape[0]))
+    for t0 in range(0, T, tiles_per_chunk):
+        rt = inputs.rays_t[:, t0 * cs.TILE_R:(t0 + tiles_per_chunk) * cs.TILE_R]
+        pass1 += int(cs.evaluated_pairs(listed[t0:t0 + tiles_per_chunk],
+                                        cs.sphere_hit_pairs(inputs.patch_t, rt))[:, :P].sum())
+    got_pass1, retries = (int(x) for x in out.pairs.sum(dim=0, dtype=torch.int64))
+    assert got_pass1 == pass1, (stem, P, got_pass1, pass1)
+    return inputs, float(counts.sum()) / (B * T), pass1, retries
+
+
+@contextlib.contextmanager
+def _list_builder_calls(cs):
+    """Counts the calls of `cuda_sweep.tile_block_lists` inside the block
+    (every caller reaches it through the module)."""
+    calls = [0]
+    builder = cs.tile_block_lists
+
+    def counted(*args, **kwargs):
+        calls[0] += 1
+        return builder(*args, **kwargs)
+
+    cs.tile_block_lists = counted
+    try:
+        yield calls
+    finally:
+        cs.tile_block_lists = builder
+
+
 def _list_ms(cs, patches, start, direction) -> float:
-    """Time of the candidate-block list builder alone (plain torch)."""
+    """Time of the host list builder alone (plain torch; the lists K1 and K2
+    took before they culled for themselves, and the twins' and K3's)."""
     rays_t = cs.pad_rays(start, direction)
     return _time_ms(lambda: cs.tile_block_lists(patches, rays_t), windows=5)
 
@@ -187,7 +278,11 @@ def _render(scene, backend="auto"):
                                  backend=backend)
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--against", default="", help="root of another checkout to "
+                    "time this one against (phase i)")
+    args = ap.parse_args(argv)
     import torch
 
     if not torch.cuda.is_available():
@@ -202,6 +297,7 @@ def main() -> int:
         sphere_lens_scene,
     )
     from cbtr_tpu_torch.benchmarks import fma_peak as fp
+    from cbtr_tpu_torch.harness import kernel_ab
     from cbtr_tpu_torch.ops import cuda_codes as cc
     from cbtr_tpu_torch.ops import cuda_sweep as cs
     from cbtr_tpu_torch.ops import cuda_winner as cw
@@ -218,12 +314,18 @@ def main() -> int:
 
     # ---- 0: device, versions, kernel build -------------------------------
     t = time.perf_counter()
-    cs.build_library()
+    build_log = cs.build_library()
     build_s = time.perf_counter() - t
     print(f"[0] card: {card} | torch {torch.__version__} cuda {torch.version.cuda} "
           f"| python {sys.version.split()[0]} | K1 + K2 + K3 + K4 build (one nvcc "
           f"per source, in parallel) {build_s:.3f} s",
           flush=True)
+    for line in build_log.splitlines():
+        if line.startswith("==") or "registers" in line or "spill" in line:
+            print(f"[0] ptxas {line.strip()}", flush=True)
+    print(f"[0] CTAs per SM: K1 {cs.occupancy('sweep_select', 512)} (P_pad 512), K2 "
+          f"{cs.occupancy('winner', 1920)} (P_pad 1920), "
+          f"{cs.occupancy('winner', 16256)} (P_pad 16,256)", flush=True)
 
     # ---- 1: scene ----------------------------------------------------------
     t = time.perf_counter()
@@ -245,6 +347,12 @@ def main() -> int:
           f"max |d dist| {k1_cmp[2]:.3e}, recompute rejects {rejects}", flush=True)
     _assert_exact("K1", k1_cmp)
     assert k1_cmp[3] > 10000 and rejects == 0
+    for use_aabb in (True, False):
+        _, frac, pass1, retries = _check_lists(cs, cw, "sweep_select", patches, start,
+                                               direction, use_aabb)
+        print(f"[2] K1's in-kernel cull at {R} x {P}, use_aabb={use_aabb}: counts and "
+              f"lists equal tile_block_lists', {frac:.4f} of tile x block pairs listed; "
+              f"pass-1 pairs {pass1} (= evaluated_pairs), retries {retries}", flush=True)
 
     # tie rule: a copy of a hit patch prepended as patch 0 ties it exactly
     both = got[0] & ref[0]
@@ -279,22 +387,36 @@ def main() -> int:
     # is the one that descends at 64^2 rays (1e-3) scaled by (64/512)^4.
     losses, g_max, g_n, main_launches = _train(lens_model, scene, kernels, 2.5e-7)
     assert main_launches == {"sweep_select": 6, "winner": 0, "sweep_codes": 0,
-                             "fma_chains": 0}, main_launches
+                             "fma_chains": 0, "tile_block_lists": 0}, main_launches
     print(f"[4] train: 3 SGD steps, loss {losses}, |grad cp| max {g_max:.4e}, "
           f"grad n {g_n:.4e}, launches {main_launches}", flush=True)
 
     # ---- 5: timings --------------------------------------------------------
-    inputs = cs.prepare_inputs(patches, start, direction)
+    inputs, listed, pass1, retries = _check_lists(cs, cw, "sweep_select", patches,
+                                                  start, direction)
+    k1_bound = _winner_bound(inputs, pass1 + retries)
     k1_launch_ms = _time_ms(lambda: cs.launch(inputs))
     k1_ms = _time_ms(lambda: cs.sweep_select(patches, start, direction))
     k1_plain_ms = _time_ms(lambda: cs.sweep_select_reference(patches, start, direction),
                            windows=3, inner=1, warmup=1)
     render_ms = _time_ms(lambda: _render(scene))
     step_ms = _fixed_step_ms(lens_model, scene)
-    listed = float(inputs.counts.sum()) / (inputs.counts.numel() * inputs.lists.shape[0])
     print(f"[5] {card} | K1 sweep+select {R} x {P}: {k1_ms:.3f} ms with its "
           f"tables ({k1_launch_ms:.3f} ms kernel alone, {listed:.4f} of tile x block "
-          f"pairs listed) vs plain twin {k1_plain_ms:.3f} ms", flush=True)
+          f"pairs listed) vs plain twin {k1_plain_ms:.3f} ms; evaluated pairs "
+          f"{pass1} + {retries} retries, bound {k1_bound[0]:.4f} ms ({k1_bound[1]})",
+          flush=True)
+    s2, d2 = kernel_ab.second_pass_rays(scene)
+    in2, listed2, pass1_2, retries_2 = _check_lists(cs, cw, "sweep_select", patches, s2, d2)
+    k1_bound_2 = _winner_bound(in2, pass1_2 + retries_2)
+    k1_2_launch_ms = _time_ms(lambda: cs.launch(in2))
+    k1_2_ms = _time_ms(lambda: cs.sweep_select(patches, s2, d2))
+    print(f"[5] {card} | K1 on the step's second refraction ({s2.shape[0]} rays): "
+          f"{k1_2_ms:.3f} ms with its tables ({k1_2_launch_ms:.3f} ms kernel alone, "
+          f"{listed2:.4f} listed; lists equal tile_block_lists'); evaluated pairs "
+          f"{pass1_2} + {retries_2} retries, bound {k1_bound_2[0]:.4f} ms; both passes "
+          f"{(pass1 + retries + pass1_2 + retries_2) / (2 * R * P):.4f} of R x P", flush=True)
+    del in2
     print(f"[5] {card} | forward render {R} rays: {render_ms:.3f} ms "
           f"({R / render_ms * 1e3:.1f} rays/s)", flush=True)
     print(f"[5] {card} | train step fwd+bwd+SGD {R} rays: {step_ms:.3f} ms "
@@ -342,6 +464,8 @@ def main() -> int:
           flush=True)
     _assert_exact("K2 refined", k2_cmp)
     assert rejects == 0
+    k2_inputs, listed, k2_pass1, k2_retries = _check_lists(cs, cw, "winner", rp, rs, rd)
+    k2_bound = _winner_bound(k2_inputs, k2_pass1 + k2_retries)
     img = _render(refined)
     img_plain = _render(refined, backend="plain")
     torch.cuda.synchronize()
@@ -349,11 +473,10 @@ def main() -> int:
     torch.testing.assert_close(img, img_plain, rtol=1e-3, atol=1e-4)
     losses, g_max, g_n, large_launches = _train(lens_model, refined, kernels, 2.5e-7)
     assert large_launches == {"sweep_select": 0, "winner": 6, "sweep_codes": 0,
-                              "fma_chains": 0}, large_launches
+                              "fma_chains": 0, "tile_block_lists": 0}, large_launches
     print(f"[a] render on K2 vs twin: max |d| {float((img - img_plain).abs().max()):.3e}; "
           f"train: 3 SGD steps, loss {losses}, |grad cp| max {g_max:.4e}, grad n "
           f"{g_n:.4e}, launches {large_launches}", flush=True)
-    k2_inputs = cw.prepare_inputs(rp, rs, rd)
     k2_launch_ms = _time_ms(lambda: cw.launch(k2_inputs))
     k2_ms = _time_ms(lambda: cw.sweep_winner(rp, rs, rd))
     k2_plain_ms = _time_ms(lambda: cw.sweep_winner_reference(rp, rs, rd),
@@ -361,12 +484,18 @@ def main() -> int:
     r_list_ms = _list_ms(cs, rp, rs, rd)
     r_render_ms = _time_ms(lambda: _render(refined))
     r_step_ms = _fixed_step_ms(lens_model, refined)
-    listed = float(k2_inputs.counts.sum()) / (k2_inputs.counts.numel()
-                                              * k2_inputs.lists.shape[0])
     print(f"[a] {card} | K2 winner {rs.shape[0]} x {rp.num_patches}: {k2_ms:.3f} ms "
-          f"with its tables ({k2_launch_ms:.3f} ms kernel alone, list builder "
-          f"{r_list_ms:.3f} ms, {listed:.4f} of tile x block pairs listed) vs plain "
-          f"twin {k2_plain_ms:.3f} ms", flush=True)
+          f"with its tables ({k2_launch_ms:.3f} ms kernel alone, host list builder "
+          f"{r_list_ms:.3f} ms, {listed:.4f} of tile x block pairs listed; lists equal "
+          f"tile_block_lists') vs plain twin {k2_plain_ms:.3f} ms; evaluated pairs "
+          f"{k2_pass1} + {k2_retries} retries, bound {k2_bound[0]:.4f} ms", flush=True)
+    rs2, rd2 = kernel_ab.second_pass_rays(refined)
+    _, _, pass1_2, retries_2 = _check_lists(cs, cw, "winner", rp, rs2, rd2)
+    print(f"[a] {card} | K2 on the refined step's second refraction: evaluated pairs "
+          f"{pass1_2} + {retries_2} retries (lists equal tile_block_lists'); both "
+          f"passes {(k2_pass1 + k2_retries + pass1_2 + retries_2) / (2 * 262144 * 1800):.4f}"
+          f" of R x P", flush=True)
+    del rs2, rd2
     print(f"[a] {card} | refined forward render {rs.shape[0]} rays: {r_render_ms:.3f} "
           f"ms ({rs.shape[0] / r_render_ms * 1e3:.1f} rays/s); train step fwd+bwd+SGD: "
           f"{r_step_ms:.3f} ms ({rs.shape[0] / r_step_ms * 1e3:.1f} rays/s fwd+bwd)",
@@ -383,14 +512,16 @@ def main() -> int:
     ref = cw.sweep_winner_reference(sp, ss[rays], sd[rays])
     cmp = _compare(tuple(x[rays] for x in got), ref)
     _assert_exact("K2 split-4", cmp)
+    _, s4_listed, s4_pairs, _ = _check_lists(cs, cw, "winner", sp, ss, sd)
     s4_ms = _time_ms(lambda: cw.sweep_winner(sp, ss, sd))
     s4_list_ms = _list_ms(cs, sp, ss, sd)
     s4_render_ms = _time_ms(lambda: _render(split4), windows=5)
     print(f"[b] {card} | split-4 robot: P = {sp.num_patches}, R = {ss.shape[0]}; K2 vs "
           f"twin on {tiles.numel()} whole tiles ({rays.numel()} rays): any_hit agreement "
           f"{cmp[0]:.6f}, win agreement on {cmp[3]} common hits {cmp[1]:.6f}, max |d "
-          f"dist| {cmp[2]:.3e}; K2 with tables {s4_ms:.3f} ms (list builder "
-          f"{s4_list_ms:.3f} ms); forward render "
+          f"dist| {cmp[2]:.3e}; lists on the full grid equal tile_block_lists' "
+          f"({s4_listed:.4f} listed, {s4_pairs} pass-1 pairs); K2 with tables "
+          f"{s4_ms:.3f} ms (host list builder {s4_list_ms:.3f} ms); forward render "
           f"{s4_render_ms:.3f} ms ({ss.shape[0] / s4_render_ms * 1e3:.1f} rays/s)",
           flush=True)
     del split4, sp, ss, sd, got, ref
@@ -401,13 +532,15 @@ def main() -> int:
     assert sp.num_patches == 16200, sp.num_patches
     cmp = _compare(cw.sweep_winner(sp, ss, sd), cw.sweep_winner_reference(sp, ss, sd))
     _assert_exact("K2 split-6", cmp)
+    _, s6_listed, s6_pairs, _ = _check_lists(cs, cw, "winner", sp, ss, sd)
     s6_ms = _time_ms(lambda: cw.sweep_winner(sp, ss, sd))
     s6_list_ms = _list_ms(cs, sp, ss, sd)
     s6_ix_ms = _time_ms(lambda: ix.intersect_rays(sp, ss, sd))
     print(f"[c] {card} | split-6 robot: P = {sp.num_patches}, R = {ss.shape[0]}; K2 vs "
           f"twin: any_hit agreement {cmp[0]:.6f}, win agreement on {cmp[3]} common hits "
-          f"{cmp[1]:.6f}, max |d dist| {cmp[2]:.3e}; K2 with tables {s6_ms:.3f} ms "
-          f"(list builder {s6_list_ms:.3f} ms); "
+          f"{cmp[1]:.6f}, max |d dist| {cmp[2]:.3e}; lists equal tile_block_lists' "
+          f"({s6_listed:.4f} listed, {s6_pairs} pass-1 pairs); K2 with tables "
+          f"{s6_ms:.3f} ms (host list builder {s6_list_ms:.3f} ms); "
           f"intersect_rays {s6_ix_ms:.3f} ms ({ss.shape[0] / s6_ix_ms * 1e3:.1f} rays/s)",
           flush=True)
     del split6, sp, ss, sd
@@ -418,9 +551,11 @@ def main() -> int:
     assert dp.num_patches == 1890, dp.num_patches
     cmp = _compare(cw.sweep_winner(dp, ds, dd), cw.sweep_winner_reference(dp, ds, dd))
     _assert_exact("K2 dimpled", cmp)
+    _check_lists(cs, cw, "winner", dp, ds, dd)
     print(f"[d] dimpled solid: P = {dp.num_patches}, R = {ds.shape[0]}; K2 vs twin: "
           f"any_hit agreement {cmp[0]:.6f}, win agreement on {cmp[3]} common hits "
-          f"{cmp[1]:.6f}, max |d dist| {cmp[2]:.3e}", flush=True)
+          f"{cmp[1]:.6f}, max |d dist| {cmp[2]:.3e}; lists equal tile_block_lists'",
+          flush=True)
 
     # ---- e: K1 against K2 on the same inputs ---------------------------------
     # Their retry rules differ (K2 gates a voted neighbour by its own sphere,
@@ -440,6 +575,13 @@ def main() -> int:
                 f"any_hit agreement {cmp[0]:.6f}, win agreement {cmp[1]:.6f}, {differ} "
                 f"rays differ, of which the unculled reference agrees with K1 on "
                 f"{with_k1}, with K2 on {with_k2}")
+        if name == "sphere 17x10":
+            # K1 and K2 at K1's largest table: each against its twin, lists
+            _assert_exact("K1 sphere", _compare(k1, cs.sweep_select_reference(p, s, d)))
+            _assert_exact("K2 sphere", _compare(k2, cw.sweep_winner_reference(p, s, d)))
+            for stem in ("sweep_select", "winner"):
+                _check_lists(cs, cw, stem, p, s, d)
+            line += "; both bit-equal to their twins, lists equal tile_block_lists'"
         if k1_of is cs.sweep_select:
             i1, i2 = cs.prepare_inputs(p, s, d), cw.prepare_inputs(p, s, d)
             line += (f"; kernel alone K1 {_time_ms(lambda: cs.launch(i1)):.3f} ms, "
@@ -478,8 +620,14 @@ def main() -> int:
         del code, dist, code_r, dist_r, inter, staged
         k3_in = cc.prepare_inputs(p, s, d)
         k3_out = cc.filled_outputs(k3_in)
+        executed = int(cs.evaluated_pairs(
+            cs.listed_blocks(k3_in.counts, k3_in.lists, k3_in.patch_t.shape[0], cc.BLOCK_P),
+            cs.sphere_hit_pairs(k3_in.patch_t, k3_in.rays_t), cc.BLOCK_P)[:, :p.num_patches].sum())
         k3_rows[name] = dict(
             max_err=max_err,
+            bound=_bound_ms(executed * _flop_per_pair(),
+                            sum(x.numel() * x.element_size() for x in
+                                (k3_in.counts, k3_in.lists, k3_in.rays_t, k3_in.patch_t, *k3_out))),
             alone=_time_ms(lambda: cc.launch(k3_in, k3_out)),
             fill=_time_ms(lambda: cc.launch(k3_in)),
             tables=_time_ms(lambda: cc.sweep_codes_cuda(p, s, d)),
@@ -491,7 +639,8 @@ def main() -> int:
               f"{k3_rows[name]['alone']:.3f} ms kernel alone (outputs filled once), "
               f"{k3_rows[name]['fill']:.3f} ms with the output fill, "
               f"{k3_rows[name]['tables']:.3f} ms with the fill and its tables vs plain "
-              f"twin {k3_rows[name]['plain']:.3f} ms", flush=True)
+              f"twin {k3_rows[name]['plain']:.3f} ms; evaluated pairs {executed}, bound "
+              f"{k3_rows[name]['bound'][0]:.4f} ms ({k3_rows[name]['bound'][1]})", flush=True)
 
     # ---- g: K4 against its twin; the FMA peak ------------------------------------
     a = 0.5 + 0.2 * torch.rand(fp.chains_elements(dev), device=dev,
@@ -523,6 +672,7 @@ def main() -> int:
           f"kept)", flush=True)
     assert k4_ms[fp.N_BIG] >= 5.0 and k4_ms[fp.N_SMALL] <= k4_ms[fp.N_BIG] / 10, k4_ms
     assert 0 < peak <= ceiling
+    k4_bound = _bound_ms(2.0 * fp.K_CHAINS * a.numel() * fp.N_BIG, 8.0 * a.numel())
 
     # ---- h: the bench entry point -----------------------------------------------
     torch.cuda.empty_cache()
@@ -544,6 +694,18 @@ def main() -> int:
           f"sweep {bench['breakdown_ms']['sweep_staged']} ms, FMA peak "
           f"{bench['fma_peak_tflops']} TFLOP/s, launches {bench_launches}", flush=True)
 
+    # ---- i: another checkout against this one ------------------------------------
+    if args.against:
+        torch.cuda.empty_cache()
+        for row in kernel_ab.compare_checkouts(args.against):
+            print(f"[i] {card} | {json.dumps(row)}", flush=True)
+            assert row.get("same_winners", True), row
+        for row in kernel_ab.cull_rows(dev):
+            print(f"[i] {card} | {json.dumps(row)}", flush=True)
+    else:
+        print("[i] no --against DIR: the comparison with another checkout is not run",
+              flush=True)
+
     print(f"chip_smoke took {time.perf_counter() - t_script:.1f} s after the imports",
           flush=True)
     print(json.dumps({"kernels": [
@@ -553,10 +715,16 @@ def main() -> int:
             "source": "cbtr_tpu_torch/csrc/sweep_select.cu",
             "replaces": "cbtr_tpu/ops/pallas_sweep.py:634",
             "launches": main_launches["sweep_select"],
+            "launches_per_step": main_launches["sweep_select"] / 3,
             "max_abs_err": k1_cmp[2],
             "ms": k1_ms,
             "plain_ms": k1_plain_ms,
+            "bound_ms": k1_bound[0],
+            "bound_by": k1_bound[1],
+            "library_ms": None,
             "kernel_only_ms": k1_launch_ms,
+            "second_pass_ms": k1_2_ms,
+            "second_pass_bound_ms": k1_bound_2[0],
         },
         {
             "name": "winner",
@@ -564,9 +732,13 @@ def main() -> int:
             "source": "cbtr_tpu_torch/csrc/winner.cu",
             "replaces": "cbtr_tpu/ops/pallas_sweep.py:1017",
             "launches": large_launches["winner"],
+            "launches_per_step": large_launches["winner"] / 3,
             "max_abs_err": k2_cmp[2],
             "ms": k2_ms,
             "plain_ms": k2_plain_ms,
+            "bound_ms": k2_bound[0],
+            "bound_by": k2_bound[1],
+            "library_ms": None,
             "kernel_only_ms": k2_launch_ms,
         },
         {
@@ -575,9 +747,13 @@ def main() -> int:
             "source": "cbtr_tpu_torch/csrc/sweep_codes.cu",
             "replaces": "cbtr_tpu/ops/pallas_sweep.py:125",
             "launches": bench_launches["sweep_codes"],
+            "launches_per_step": 0,
             "max_abs_err": max(r["max_err"] for r in k3_rows.values()),
             "ms": k3_rows["robot"]["tables"],
             "plain_ms": k3_rows["robot"]["plain"],
+            "bound_ms": k3_rows["robot"]["bound"][0],
+            "bound_by": k3_rows["robot"]["bound"][1],
+            "library_ms": None,
             "kernel_only_ms": k3_rows["robot"]["alone"],
             "kernel_and_fill_ms": k3_rows["robot"]["fill"],
         },
@@ -587,9 +763,13 @@ def main() -> int:
             "source": "cbtr_tpu_torch/csrc/fma_peak.cu",
             "replaces": "benchmarks/vpu_peak.py:48",
             "launches": bench_launches["fma_chains"],
+            "launches_per_step": 0,
             "max_abs_err": k4_err,
             "ms": k4_ms[fp.N_BIG],
             "plain_ms": k4_plain_ms,
+            "bound_ms": k4_bound[0],
+            "bound_by": k4_bound[1],
+            "library_ms": None,
         },
     ]}), flush=True)
     print(card, flush=True)

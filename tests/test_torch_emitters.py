@@ -45,12 +45,12 @@ def test_hemisphere_samples_bit_equal(belts, seed):
 
 
 def test_emitter_rays_bit_equal():
-    s, d = emitter_rays(4096, belts=16, seed=1)
+    s, d = emitter_rays(4096, belts=16, seed=1, device="cpu")
     s_r, d_r = jax_emitter_rays(4096, belts=16, seed=1)
     assert s.dtype == d.dtype == torch.float32 and s.shape == d.shape == (4096, 3)
     np.testing.assert_array_equal(s.numpy(), np.asarray(s_r))
     np.testing.assert_array_equal(d.numpy(), np.asarray(d_r))
-    s2, _ = emitter_rays(8, origin=(1.0, 2.0, 3.0))
+    s2, _ = emitter_rays(8, origin=(1.0, 2.0, 3.0), device="cpu")
     s2_r, _ = jax_emitter_rays(8, origin=(1.0, 2.0, 3.0))
     np.testing.assert_array_equal(s2.numpy(), np.asarray(s2_r))
 
@@ -88,7 +88,7 @@ def test_sort_rays_round_trips():
 def test_sorted_intersection_identical_results():
     """tests/test_fit_resume.py::test_sorted_intersection_identical_results on
     the port: a shuffled emitter-style bundle through the sphere lens."""
-    scene = sphere_lens_scene(res=8)
+    scene = sphere_lens_scene(res=8, device="cpu")
     rng = np.random.default_rng(3)
     d, patch = emitters.UniformHemisphere(belts=4, seed=1).sample(256)
     d = d * np.array([1.0, 0.25, 0.25], np.float32)

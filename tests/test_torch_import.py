@@ -18,6 +18,8 @@ import cbtr_tpu_torch.ops.cuda_codes as cc
 import cbtr_tpu_torch.benchmarks.fma_peak as fp
 import cbtr_tpu_torch.bench
 import cbtr_tpu_torch.harness.reference_tracer
+import cbtr_tpu_torch.harness.kernel_ab
+import cbtr_tpu_torch.harness.profile_step
 import cbtr_tpu_torch.models.fit
 import cbtr_tpu_torch.render.emitters
 import cbtr_tpu_torch.render.ray_sort

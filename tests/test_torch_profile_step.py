@@ -15,7 +15,7 @@ torch.set_num_threads(2)
 
 def test_profile_step_sees_every_stage_on_cpu():
     originals = [getattr(mod, attr) for _, mod, attr in profile_step.STAGES]
-    result = profile_step.run_profile(res=16, runs=1)
+    result = profile_step.run_profile(res=16, runs=1, device="cpu")
     assert [getattr(mod, attr) for _, mod, attr in profile_step.STAGES] == originals
     assert (result["rays"], result["patches"]) == (256, 450)
     calls = {label: s["calls"] for label, s in result["stages_forward"].items()}

@@ -127,7 +127,7 @@ def test_thick_sets_of_own_builds_agree(name, monkeypatch):
     (ROADMAP queue C counts them)."""
     if name == "robot":
         monkeypatch.setenv("CBTR_NATIVE", "0")
-        port = scenes.robot_lens_scene(res=8).patches
+        port = scenes.robot_lens_scene(res=8, device="cpu").patches
         ref = jax_scenes.robot_lens_scene(res=8).patches
     else:
         sectors, belts = (7, 3) if name == "ellipsoid7x3" else (15, 5)

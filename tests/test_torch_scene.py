@@ -162,8 +162,8 @@ def test_ortho_ray_grid_bit_equal(res):
 def test_robot_lens_scene_matches_jax(monkeypatch):
     """The whole scene: 450 patches, the 32^2 ray grid, the screen plane."""
     monkeypatch.setenv("CBTR_NATIVE", "0")
-    port = scenes.robot_lens_scene(res=32)
-    port64 = scenes.robot_lens_scene(res=32, dtype=torch.float64)
+    port = scenes.robot_lens_scene(res=32, device="cpu")
+    port64 = scenes.robot_lens_scene(res=32, dtype=torch.float64, device="cpu")
     ref = jax_scenes.robot_lens_scene(res=32)
     assert port.patches.num_patches == 450
     np.testing.assert_array_equal(port.start.numpy(), np.asarray(ref.start))
@@ -198,8 +198,8 @@ def test_large_scene_matches_jax(monkeypatch, name, num_patches):
         "ellipsoid": (scenes.ellipsoid_lens_scene, jax_scenes.ellipsoid_lens_scene, {}),
         "dimpled": (scenes.dimpled_lens_scene, jax_scenes.dimpled_lens_scene, {}),
     }[name]
-    port = make(res=16, **kw)
-    port64 = make(res=16, dtype=torch.float64, **kw)
+    port = make(res=16, device="cpu", **kw)
+    port64 = make(res=16, dtype=torch.float64, device="cpu", **kw)
     ref = jax_make(res=16, **kw)
     assert port.patches.num_patches == ref.patches.num_patches == num_patches
     np.testing.assert_array_equal(port.start.numpy(), np.asarray(ref.start))
