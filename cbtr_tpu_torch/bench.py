@@ -364,8 +364,7 @@ def run(args) -> dict:
         _log(f"breakdown: {extras['breakdown_ms']}")
 
         # pairs K3 evaluates: listed and gated 32-patch blocks
-        P_pad = k3_in.patch_t.shape[0]
-        listed = cs.listed_blocks(k3_in.counts, k3_in.lists, P_pad, cc.BLOCK_P)
+        listed = cs.tile_bitmap_reference(k3_in.bounds, k3_in.rays_t, k3_in.use_aabb)
         evaluated = cs.evaluated_pairs(
             listed, cs.sphere_hit_pairs(k3_in.patch_t, k3_in.rays_t), cc.BLOCK_P)
         executed = int(evaluated[:R, :P].sum())

@@ -21,7 +21,7 @@ from ..config import DEFAULT as CFG
 from .patches import BezierPatches, interpolate
 
 
-def build_from_trimesh(mesh, device="cpu", dtype=torch.float32) -> BezierPatches:
+def build_from_trimesh(mesh, device="cuda", dtype=torch.float32) -> BezierPatches:
     """Convenience: preprocessed TriMesh -> BezierPatches on `device`."""
     arrays = mesh.device_arrays()
     return build_patches(

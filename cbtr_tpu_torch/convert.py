@@ -13,7 +13,7 @@ from .bezier.patches import BezierPatches
 from .models.lens_model import LensParams
 
 
-def patches_from_numpy(arrays: Mapping[str, np.ndarray], device="cpu") -> BezierPatches:
+def patches_from_numpy(arrays: Mapping[str, np.ndarray], device="cuda") -> BezierPatches:
     """{leaf name: array} (the BezierPatches field names) -> BezierPatches."""
     return BezierPatches(**{
         f.name: torch.as_tensor(np.array(arrays[f.name]), device=device)

@@ -1,7 +1,8 @@
-// The (128-ray tile x 16-patch block) walk shared by K1 (sweep_select.cu) and
-// K2 (winner.cu): each CTA culls the blocks for its own tile, then walks the
-// listed blocks in ascending order with their rows double-buffered in shared
-// memory.
+// The (128-ray tile x patch block) walk shared by K1 (sweep_select.cu), K2
+// (winner.cu), both at blocks of 16 patches, and K3 (sweep_codes.cu) at 32
+// (block_p is a run-time argument): each CTA culls the blocks for its own
+// tile, then walks the listed blocks in ascending order with their rows
+// double-buffered in shared memory.
 //
 // The cull replaces the host-side lists (cuda_sweep.tile_block_lists), which
 // the TPU kernels took by scalar prefetch.  A block is listed for a tile when
@@ -17,12 +18,13 @@
 // block) pair: 32 blocks a ray at P = 450, 1016 at P = 16,200, against about
 // 27 kFLOP for every evaluated block.
 //
-// The staging: while block k's 16 rows are evaluated, block k+1's 4 KiB are
-// already in flight by cp.async (16 bytes a thread) into the other half of
-// a double buffer.
+// The staging: while block k's 16 rows are evaluated, block k+1's 4 KiB (K3:
+// 32 rows, 8 KiB) are already in flight by cp.async (16 bytes a thread) into
+// the other half of a double buffer.
 //
 // The split: a CTA runs SPLIT = 4 threads a ray (512 threads, one CTA and 16
-// warps an SM at <= 128 registers), each on 4 of a block's 16 patches.  A
+// warps an SM at <= 128 registers), each on 4 of a block's 16 patches (K3: 8
+// of 32).  A
 // tile's listed blocks range from 0 to 17 of 32 at P = 450, and a tile's CTA
 // runs them one after the other, so the tiles with the most blocks set the
 // kernel's end; four threads a ray finish such a tile in a quarter of the
@@ -37,7 +39,6 @@
 
 namespace {
 
-constexpr int N_BOUNDS = 12;        // cuda_sweep.block_bounds columns
 constexpr int BOUNDS_CHUNK = 128;   // blocks whose bounds are staged at once
 // threads per ray: thread t works for ray t % TILE_R on the patches j of
 // each block with j % SPLIT == t / TILE_R, and culls the blocks b with

@@ -1,5 +1,6 @@
 // Candidate arithmetic shared by the port's sweep kernels: K1
-// (sweep_select.cu), K2 (winner.cu) and K3 (sweep_codes.cu).
+// (sweep_select.cu), K2 (winner.cu) and K3 (sweep_codes.cu); the table
+// kernel (tables.cu) takes the table layouts and the min/max from here.
 //
 // candidate_code evaluates the expressions of
 // cbtr_tpu_torch/ops/intersect.py::_candidates_core in the same order.  With
@@ -32,6 +33,7 @@ namespace {
 
 constexpr int TILE_R = 128;
 constexpr int N_ROWS = 64;
+constexpr int N_BOUNDS = 12;  // cuda_sweep.block_bounds columns
 
 // feature columns of the packed patch table (cuda_sweep._ROW_*)
 constexpr int ROW_PLANE = 30;
@@ -318,12 +320,6 @@ __device__ __forceinline__ int candidate_code(const Row& row, const Ray& r,
   return what | (in_dom << 3);
 }
 
-// K3's evaluator: one out-of-line copy over a row of its staged block
-__device__ __noinline__ int eval_candidate(const float* row, const Ray r,
-                                           const Params prm, float* dist_out) {
-  return candidate_code(SharedRow{row}, r, prm, dist_out);
-}
-
 // per-patch bounding-sphere cull (cuda_sweep.sphere_hit_pairs)
 template <class Row>
 __device__ __forceinline__ bool patch_sphere_hit(const Row& row, const Ray& r) {
@@ -335,10 +331,6 @@ __device__ __forceinline__ bool patch_sphere_hit(const Row& row, const Ray& r) {
   const float rel2 = relx * relx + rely * rely + relz * relz;
   const float r2 = s.w * s.w;
   return ((rel2 - t_ca * t_ca) <= r2) && ((t_ca >= 0.0f) || (rel2 <= r2));
-}
-
-__device__ __forceinline__ bool sphere_hit(const float* row, const Ray& r) {
-  return patch_sphere_hit(SharedRow{row}, r);
 }
 
 // min distance, lowest patch id on ties

@@ -9,6 +9,8 @@ For each: the kernel alone (`launch` on tables built once, K3 on outputs
 filled once), its tables alone (`prepare_inputs`), both together (the
 wrapper: what the main path pays), the host list builder `tile_block_lists`
 at the kernel's block size, and a digest of the wrapper's result.  Then the
+tables alone once more for K1, K2 and K3, with the device ops and the
+device-busy ms of one `prepare_inputs` under torch.profiler, and the
 fixed-lens train step (step size 0) of the headline and of the refined
 robot, with its device ops and device-busy ms under torch.profiler.
 
@@ -64,6 +66,13 @@ WINNER_SHAPES = (
 )
 # K3 on the first 65,536 rays of the 512^2 grid (the bench's breakdown)
 K3_SHAPES = (("65,536 x 450 (K3)", {}), ("65,536 x 1800, refined (K3)", {"refine": True}))
+# the tables alone (`prepare_inputs`, with its device ops): (label, scene
+# arguments, rays, kernel)
+TABLE_SHAPES = (
+    ("prepare_inputs alone, 262,144 x 450 (K1)", {}, 262144, "K1"),
+    ("prepare_inputs alone, 262,144 x 1800 (K2)", {"refine": True}, 262144, "K2"),
+    ("prepare_inputs alone, 65,536 x 450 (K3)", {}, 65536, "K3"),
+)
 STEP_SCENES = (("headline step, robot 512^2", {}), ("refined step, robot 512^2", {"refine": True}))
 
 # `python -c` program of the probe process: runs this file, with --probe,
@@ -154,6 +163,16 @@ def probe(device) -> dict:
             cc.launch, i, cc.filled_outputs(i)), cc.sweep_codes_cuda, cc.BLOCK_P,
             sc.patches, s, d)
         del sc, s, d
+        torch.cuda.empty_cache()
+    for label, kw, rays, kernel in TABLE_SHAPES:
+        sc = robot_lens_scene(res=512, device=device, **kw)
+        prepare = {"K1": cs, "K2": cw, "K3": cc}[kernel].prepare_inputs
+
+        def tables():
+            return prepare(sc.patches, sc.start[:rays], sc.direction[:rays])
+
+        out[label] = {"tables_ms": time_ms(tables), **_busy(tables, True)}
+        del sc
         torch.cuda.empty_cache()
     for label, kw in STEP_SCENES:
         sc = robot_lens_scene(res=512, device=device, **kw)

@@ -30,18 +30,21 @@ def preprocess(mesh: TriMesh) -> TriMesh:
 
 
 def measure_approximation(split_steps: int, sectors: int, belts: int, size,
-                          divisor: int) -> float:
+                          divisor: int, device="cuda") -> float:
+    """Mean squared relative error of the tessellated Bezier surface over
+    an ellipsoid mesh (module docstring); the patches are built, split and
+    tessellated on `device`."""
     size = np.asarray(size, np.float32)
     mesh = preprocess(make_ellipsoid(sectors, belts, size))
 
     for _ in range(split_steps):
-        patches = build_from_trimesh(mesh)
+        patches = build_from_trimesh(mesh, device=device)
         new_tris, _ = split_thick_patches(
             patches, mesh.fellow_triangles, mesh.fellow_common_side_starts
         )
         mesh = preprocess(TriMesh(new_tris))
 
-    patches = build_from_trimesh(mesh)
+    patches = build_from_trimesh(mesh, device=device)
     planified = TriMesh(tessellate_to_numpy(patches, divisor))
     planified.standardize_vertices()
     vertices = planified.unique_vertices()

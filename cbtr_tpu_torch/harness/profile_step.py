@@ -11,7 +11,7 @@ rays, 128 x 128 image, zero target):
   --runs), and the step's peak device memory;
 * torch.profiler over one forward and one step: device ops run and the
   device's busy time (the union of their intervals), set against the
-  unprofiled wall time;
+  unprofiled wall time; the same over one `prepare_inputs` (K1's tables);
 * the fraction of (tile x block) pairs K1's cull lists (the kernel's own
   per-tile counts on the card).
 
@@ -192,6 +192,7 @@ def run_profile(res: int = 512, runs: int = 5, device="cuda") -> dict:
     listed = float(counts.sum()) / (counts.numel() * inputs.bounds.shape[0])
     fwd_busy = _busy(forward, cuda)
     step_busy = _busy(lambda: step(params, start, direction), cuda)
+    tables_busy = _busy(lambda: cs.prepare_inputs(patches, start, direction), cuda)
     share = (lambda b, w: b / w if b is not None else None)
     return {
         "device": torch.cuda.get_device_name(dev) if cuda else "cpu",
@@ -204,6 +205,7 @@ def run_profile(res: int = 512, runs: int = 5, device="cuda") -> dict:
         "listed_fraction": listed,
         "forward_profile": {**fwd_busy, "busy_share": share(fwd_busy["busy_ms"], forward_ms)},
         "step_profile": {**step_busy, "busy_share": share(step_busy["busy_ms"], step_ms)},
+        "tables_profile": tables_busy,
     }
 
 

@@ -11,8 +11,11 @@ times it as its sweep stage and checks the recompute against it.
 The candidate set is the JAX kernel's, at its block size of 32 patches
 (`pallas_sweep.BLOCK_P`; K1 and K2 use 16):
 
-* `cuda_sweep.tile_block_lists(block_p=32)` lists, per 128-ray tile, the
-  blocks whose merged sphere AND union AABB some ray of the tile hits;
+* a block is listed for a 128-ray tile when some ray of the tile hits its
+  merged sphere AND its union AABB (`cuda_sweep.block_bounds` at block 32):
+  the kernel culls for its own tile (csrc/block_walk.cuh, as K1 and K2 do),
+  the plain twin reads the same test from
+  `cuda_sweep.tile_block_lists(block_p=32)`;
 * a listed block is evaluated for all 128 rays when any (patch, ray) pair
   of block x tile passes the per-patch sphere test;
 * every other pair keeps code WHAT_NONE and dist 0.0, the values the TPU
@@ -20,8 +23,8 @@ The candidate set is the JAX kernel's, at its block size of 32 patches
 
 The TPU entry point chunks patches at `_RESIDENT_MAX_P` = 8192 rows (VMEM)
 and rays at `_SMEM_LIST_BUDGET` (SMEM for the prefetched lists).  Both are
-memory workarounds that change no output; K3 takes the whole table and all
-lists in one launch.  Its patch table is padded to 128 rows (K1's), not to
+memory workarounds that change no output; K3 takes the whole table in one
+launch and builds no lists.  Its patch table is padded to 128 rows (K1's), not to
 32; the extra rows are all-padding blocks that are never listed.
 
 `sweep_codes_cuda` launches csrc/sweep_codes.cu for CUDA tensors and calls
@@ -38,6 +41,7 @@ import torch
 from ..bezier.patches import BezierPatches
 from ..config import DEFAULT as CFG
 from . import cuda_sweep as cs
+from . import cuda_tables
 from . import intersect as ix
 
 # patches per candidate block: the JAX kernel's BLOCK_P
@@ -82,24 +86,36 @@ def sweep_codes_reference(patches: BezierPatches, start, direction,
 class CodesInputs:
     """Everything one launch of K3 reads, built by `prepare_inputs`."""
 
-    counts: torch.Tensor    # [T] i32 listed 32-patch blocks per tile
-    lists: torch.Tensor     # [P_pad / 32, T] i32 listed block ids, ascending
     rays_t: torch.Tensor    # [8, R_pad] f32
     patch_t: torch.Tensor   # [P_pad, 64] f32
+    bounds: torch.Tensor    # [P_pad / 32, 12] f32 (`cuda_sweep.block_bounds`)
     num_patches: int
+    use_aabb: bool = True   # the cull's AABB leg (`cuda_sweep.tile_block_lists`)
+
+
+@dataclasses.dataclass(frozen=True)
+class CodesOutputs:
+    """What one launch of K3 writes (`launch`)."""
+
+    code: torch.Tensor      # [P_pad, R_pad] i32, WHAT_NONE where not evaluated
+    dist: torch.Tensor      # [P_pad, R_pad] f32, 0.0 where not evaluated
+    counts: torch.Tensor    # [T] i32 blocks the tile's cull listed
+    lists: torch.Tensor | None = None   # [B, T] i32: lists[:counts[t], t] ascending
+    pairs: torch.Tensor | None = None   # [T] i32: (ray, patch) pairs evaluated
 
 
 def prepare_inputs(patches: BezierPatches, start, direction,
                    use_aabb: bool = True) -> CodesInputs:
-    """K3's tables (plain tensor ops on the rays' device): K1's ray and
-    patch tables, lists at block 32."""
+    """K3's tables on the rays' device: K1's rays (`cuda_sweep.pad_rays`);
+    the patch table and the block bounds at block 32 from
+    `cuda_tables.build_tables`; use_aabb as in `cuda_sweep.tile_block_lists`.
+    No lists: the kernel culls for itself."""
     device = start.device
     if patches.device != device or direction.device != device:
         raise ValueError("patches, start and direction must share one device")
     rays_t = cs.pad_rays(start.to(torch.float32), direction.to(torch.float32))
-    counts, lists = cs.tile_block_lists(patches, rays_t, BLOCK_P, use_aabb)
-    return CodesInputs(counts, lists, rays_t, cs.pack_patch_table(patches),
-                       patches.num_patches)
+    patch_t, bounds, _ = cuda_tables.build_tables(patches, BLOCK_P)
+    return CodesInputs(rays_t, patch_t, bounds, patches.num_patches, use_aabb)
 
 
 def filled_outputs(inputs: CodesInputs):
@@ -110,43 +126,58 @@ def filled_outputs(inputs: CodesInputs):
             torch.zeros(shape, dtype=torch.float32, device=device))
 
 
-def launch(inputs: CodesInputs, out=None):
-    """One launch of K3 on the current stream over tables from
-    `prepare_inputs`: (code [P_pad, R_pad] i32, dist [P_pad, R_pad] f32),
-    patch-major as the TPU kernel writes them, (WHAT_NONE, 0.0) on every
-    pair it does not evaluate.
-
-    The kernel writes only the pairs it evaluates, into `out`: by default
-    fresh `filled_outputs`; outputs of an earlier launch on the same inputs
-    come back unchanged (how the kernel is timed without the fill)."""
+def check_inputs(inputs: CodesInputs):
+    """Raise unless `inputs` are tables K3 takes: CUDA tensors of the shapes,
+    types and layout `prepare_inputs` gives.  Returns (T, P_pad)."""
     device = inputs.rays_t.device
-    if device.type != "cuda":
-        raise ValueError(f"K3 runs on CUDA tensors, got {device}; on the CPU "
-                         "its plain twin computes the same function")
-    R_pad, P_pad = inputs.rays_t.shape[1], inputs.patch_t.shape[0]
-    T = R_pad // cs.TILE_R
+    R_pad, P_pad = inputs.rays_t.shape[-1], inputs.patch_t.shape[0]
     if R_pad % cs.TILE_R or P_pad % cs._PATCH_PAD or not 0 < inputs.num_patches <= P_pad:
         raise ValueError(f"unsupported shape: P = {inputs.num_patches}, "
                          f"R_pad = {R_pad}, P_pad = {P_pad}")
     for t, name, dtype, shape in (
-        (inputs.counts, "counts", torch.int32, (T,)),
-        (inputs.lists, "lists", torch.int32, (P_pad // BLOCK_P, T)),
         (inputs.rays_t, "rays_t", torch.float32, (8, R_pad)),
         (inputs.patch_t, "patch_t", torch.float32, (P_pad, cs._N_ROWS)),
+        (inputs.bounds, "bounds", torch.float32, (P_pad // BLOCK_P, cs._N_BOUNDS)),
     ):
         cs._check(t, name, dtype, shape, device)
+    if device.type != "cuda":
+        raise ValueError(f"K3 runs on CUDA tensors, got {device}; on the CPU "
+                         "its plain twin computes the same function")
+    return R_pad // cs.TILE_R, P_pad
+
+
+def launch(inputs: CodesInputs, out=None, lists: bool = False,
+           pairs: bool = False) -> CodesOutputs:
+    """One launch of K3 on the current stream over tables from
+    `prepare_inputs`: code [P_pad, R_pad] i32 and dist [P_pad, R_pad] f32,
+    patch-major as the TPU kernel writes them, (WHAT_NONE, 0.0) on every
+    pair it does not evaluate, and the per-tile counts of its cull.  lists /
+    pairs also fill the per-tile lists and evaluated pairs (for checks; the
+    wrapper asks for neither).
+
+    The kernel writes only the pairs it evaluates, into `out`: by default
+    fresh `filled_outputs`; outputs of an earlier launch on the same inputs
+    come back unchanged (how the kernel is timed without the fill)."""
+    T, P_pad = check_inputs(inputs)
+    device, R_pad, B = inputs.rays_t.device, T * cs.TILE_R, P_pad // BLOCK_P
     code, dist = filled_outputs(inputs) if out is None else out
     cs._check(code, "code", torch.int32, (P_pad, R_pad), device)
     cs._check(dist, "dist", torch.float32, (P_pad, R_pad), device)
+    result = CodesOutputs(
+        code, dist, counts=torch.empty(T, dtype=torch.int32, device=device),
+        lists=torch.full((B, T), -1, dtype=torch.int32, device=device) if lists else None,
+        pairs=torch.zeros(T, dtype=torch.int32, device=device) if pairs else None)
 
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib = cs.load_library("sweep_codes", [vp] * 6 + [ci] * 4 + [cf] * 4 + [ci, vp])
+    lib = cs.load_library("sweep_codes", [vp] * 8 + [ci] * 6 + [cf] * 4 + [ci, vp])
     with torch.cuda.device(device):
         rc = lib.cbtr_sweep_codes(
-            inputs.counts.data_ptr(), inputs.lists.data_ptr(),
             inputs.rays_t.data_ptr(), inputs.patch_t.data_ptr(),
-            code.data_ptr(), dist.data_ptr(),
-            T, inputs.num_patches, BLOCK_P,
+            inputs.bounds.data_ptr(), code.data_ptr(), dist.data_ptr(),
+            result.counts.data_ptr(),
+            result.lists.data_ptr() if lists else None,
+            result.pairs.data_ptr() if pairs else None,
+            T, inputs.num_patches, P_pad, BLOCK_P, int(inputs.use_aabb),
             int(CFG.root_search_iterations),
             CFG.ray_plane_intersection_epsilon,
             CFG.intersection_estimation_epsilon,
@@ -160,7 +191,7 @@ def launch(inputs: CodesInputs, out=None):
             f"sweep_codes kernel launch failed: "
             f"{lib.cbtr_cuda_error_string(rc).decode()} ({rc})")
     sweep_codes_cuda.launches += 1
-    return code, dist
+    return result
 
 
 def sweep_codes_cuda(patches: BezierPatches, start, direction,
@@ -175,9 +206,9 @@ def sweep_codes_cuda(patches: BezierPatches, start, direction,
     the kernel's launches."""
     if not start.is_cuda:
         return sweep_codes_reference(patches, start, direction, use_aabb)
-    code, dist = launch(prepare_inputs(patches, start, direction, use_aabb))
+    out = launch(prepare_inputs(patches, start, direction, use_aabb))
     R, P = start.shape[0], patches.num_patches
-    return code.T[:R, :P], dist.T[:R, :P]
+    return out.code.T[:R, :P], out.dist.T[:R, :P]
 
 
 sweep_codes_cuda.launches = 0

@@ -26,7 +26,9 @@ granularity, as on the TPU:
 `sweep_select_reference` for CPU tensors; it never falls back from one to
 the other.  The kernels are built with nvcc at first use (no import-time
 work: importing this module needs no nvcc); `build_library` and
-`load_library` serve every kernel of the port (K2 in cuda_winner.py too).
+`load_library` serve every kernel of the port (K2 in cuda_winner.py, K3 in
+cuda_codes.py, the table kernel in cuda_tables.py, K4 in
+benchmarks/fma_peak.py).
 """
 from __future__ import annotations
 
@@ -74,7 +76,8 @@ _BIG_F = ix._BIG
 
 
 # ---------------------------------------------------------------------------
-# host-side tables (plain tensor ops, shared by the kernel and its twin)
+# tables in plain tensor ops: the twins' own, and the plain version of the
+# table kernel (cuda_tables.py), which builds them for K1-K3 on the card
 # ---------------------------------------------------------------------------
 
 
@@ -183,7 +186,7 @@ def tile_block_lists(patches: BezierPatches, rays_t, block_p: int = BLOCK_P,
     use_aabb=False drops the AABB leg (the sphere-only cull, for the bench's
     cull A/B).  A dense [rays, B] test in chunks of whole tiles (about
     _LIST_CHUNK_PAIRS ray-block pairs each), then a stable sort.  The plain
-    twins and K3 read their lists here; K1 and K2 cull inside the kernel."""
+    twins read their lists here; K1, K2 and K3 cull inside the kernel."""
     bounds = block_bounds(patches, block_p)
     c, r = bounds[:, :3], bounds[:, _BND_RADIUS]
     lob, hib = bounds[:, _BND_LO:_BND_LO + 3], bounds[:, _BND_HI:_BND_HI + 3]
@@ -502,21 +505,18 @@ class KernelOutputs:
 
 def prepare_inputs(patches: BezierPatches, start, direction,
                    use_aabb: bool = True) -> KernelInputs:
-    """The kernel's tables (plain tensor ops on the rays' device): rays,
-    patch table, block bounds (one `patch_spheres` for both), neighbours;
-    use_aabb as in `tile_block_lists`.  No lists: the kernels cull for
-    themselves."""
+    """The kernel's tables on the rays' device: the rays (`pad_rays`); patch
+    table, block bounds and neighbours from `cuda_tables.build_tables` (the
+    table kernel on the card, the plain versions on the CPU); use_aabb as in
+    `tile_block_lists`.  No lists: the kernels cull for themselves."""
+    from . import cuda_tables       # it imports this module for the plain versions
+
     device = start.device
     if patches.device != device or direction.device != device:
         raise ValueError("patches, start and direction must share one device")
-    P = patches.num_patches
     rays_t = pad_rays(start.to(torch.float32), direction.to(torch.float32))
-    spheres = patch_spheres(patches)
-    patch_t = pack_patch_table(patches, spheres)
-    bounds = block_bounds(patches, BLOCK_P, spheres)
-    nb = torch.full((patch_t.shape[0], 3), -1, dtype=torch.int32, device=device)
-    nb[:P] = patches.neighbours.to(torch.int32)
-    return KernelInputs(rays_t, patch_t, bounds, nb, P, use_aabb)
+    patch_t, bounds, nb = cuda_tables.build_tables(patches, BLOCK_P)
+    return KernelInputs(rays_t, patch_t, bounds, nb, patches.num_patches, use_aabb)
 
 
 def check_inputs(inputs: KernelInputs, kernel: str):

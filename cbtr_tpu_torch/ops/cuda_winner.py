@@ -86,8 +86,8 @@ def sweep_winner_reference(patches: BezierPatches, start, direction,
 
 def prepare_inputs(patches: BezierPatches, start, direction,
                    use_aabb: bool = True) -> cs.KernelInputs:
-    """K2's tables (plain tensor ops on the rays' device): K1's, with the
-    neighbour ids clipped to [0, P) (padding rows are never read)."""
+    """K2's tables: K1's (`cuda_sweep.prepare_inputs`), with the neighbour
+    ids clipped to [0, P) (padding rows are never read)."""
     inputs = cs.prepare_inputs(patches, start, direction, use_aabb)
     return dataclasses.replace(inputs, nb=inputs.nb.clamp(0, inputs.num_patches - 1))
 

@@ -79,7 +79,7 @@ def _candidates_core(patches: BezierPatches, start, direction):
     (reference/bezierTriangle.cpp:127-131); the gate-ON result is the same
     candidate with ``valid &= in_dom``.
 
-    csrc/candidate.cuh::eval_candidate evaluates the same expressions in
+    csrc/candidate.cuh::candidate_code evaluates the same expressions in
     the same order; keep the two in step.
     """
     cp = patches.control_points

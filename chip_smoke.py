@@ -13,8 +13,12 @@ checks them:
   and trains at 512^2 rays, the split robots (7200 and 16,200 patches) and the
   dimpled solid (1890) intersect;
 * the port's benchmark entry point, `python -m cbtr_tpu_torch.bench`, whose
-  staged sweep runs K3 (cbtr_tpu_torch/csrc/sweep_codes.cu) and whose
-  roofline is measured by K4 (cbtr_tpu_torch/csrc/fma_peak.cu).
+  staged sweep runs K3 (cbtr_tpu_torch/csrc/sweep_codes.cu, on the same
+  block walk at blocks of 32) and whose roofline is measured by K4
+  (cbtr_tpu_torch/csrc/fma_peak.cu);
+* the table kernel (cbtr_tpu_torch/csrc/tables.cu), which builds K1's, K2's
+  and K3's patch table, block bounds and neighbour table at every call of
+  theirs: twice a train step.
 
 Phases:
 
@@ -51,12 +55,20 @@ Phases:
      they differ and which one the unculled reference agrees with; both
      kernels' times; at P = 1020 both kernels against their twins and their
      lists against the host builder's
+  t  the table kernel against the plain versions (`torch.equal` on the
+     patch table, the bounds at block 16 and 32, the neighbours) on the
+     robot, refined robot, split-4, split-6, dimpled solid, sphere 17 x 10
+     and ellipsoid 15 x 5; its time and the plain versions'; the device ops
+     of one `prepare_inputs` (K1, K2, K3) under torch.profiler: under 12
   f  K3 against its twin at 65,536 x 450 (the bench's breakdown shape) and
      65,536 x 1800 (refined): codes on every pair, distances bit-equal on
-     every cIntersect pair (the other pairs counted); the staged winners
-     (K3, then select_candidates) against K1 or K2; recompute rejects on
-     4096 rays; K3's time alone (on outputs filled once), with the output
-     fill, with the fill and its tables, and its twin's
+     every cIntersect pair (the other pairs counted); its in-kernel counts
+     and lists against `tile_block_lists(block_p=32)`, with and without the
+     AABB leg, its evaluated pairs against `evaluated_pairs`; no
+     `tile_block_lists` call inside the wrapper; the staged winners (K3,
+     then select_candidates) against K1 or K2; recompute rejects on 4096
+     rays; K3's time alone (on outputs filled once), with the output fill,
+     with the fill and its tables, and its twin's
   g  K4 against its twin (rtol 2e-6) at the short lengths fp.CHECK_LENGTHS,
      where the chains have not converged, and at both timing lengths;
      the FMA peak measured 3 times (fp.RUNS), every run and the card's ceiling
@@ -229,6 +241,47 @@ def _check_lists(cs, cw, stem, patches, start, direction, use_aabb=True):
     return inputs, float(counts.sum()) / (B * T), pass1, retries
 
 
+def _check_codes_lists(cs, cc, patches, start, direction, use_aabb):
+    """K3's in-kernel cull (block 32) against `tile_block_lists`: per-tile
+    counts equal, lists[:counts[t], t] equal; its evaluated pairs against
+    `evaluated_pairs`.  Returns (inputs, listed fraction, evaluated pairs)."""
+    import torch
+
+    inputs = cc.prepare_inputs(patches, start, direction, use_aabb)
+    out = cc.launch(inputs, lists=True, pairs=True)
+    counts, lists = cs.tile_block_lists(patches, inputs.rays_t, cc.BLOCK_P, use_aabb)
+    torch.cuda.synchronize()
+    B, T = lists.shape
+    P = patches.num_patches
+    assert torch.equal(out.counts, counts), ("K3", P, use_aabb)
+    mask = torch.arange(B, device=counts.device)[:, None] < counts[None, :]
+    assert torch.equal(out.lists[mask], lists[mask]), ("K3", P, use_aabb)
+    listed = cs.listed_blocks(counts, lists, inputs.patch_t.shape[0], cc.BLOCK_P)
+    executed = int(cs.evaluated_pairs(
+        listed, cs.sphere_hit_pairs(inputs.patch_t, inputs.rays_t), cc.BLOCK_P)[:, :P].sum())
+    got = int(out.pairs.sum(dtype=torch.int64))
+    assert got == executed, ("K3", P, use_aabb, got, executed)
+    return inputs, float(counts.sum()) / (B * T), executed
+
+
+def _check_tables(ct, name, patches):
+    """The table kernel against the plain versions on one lens, at block 16
+    and 32: every table `torch.equal`.  Returns max |kernel - plain| (0.0)."""
+    import torch
+
+    err = 0.0
+    for block_p in (16, 32):
+        got = ct.build_tables(patches, block_p)
+        want = ct.build_tables_reference(patches, block_p)
+        torch.cuda.synchronize()
+        for table, g, w in zip(("patch_t", "bounds", "nb"), got, want):
+            assert g.dtype == w.dtype and g.shape == w.shape, (name, block_p, table)
+            assert torch.equal(g, w), (name, block_p, table, int((g != w).sum()))
+            # empty blocks hold infinite box corners on both sides: inf - inf
+            err = max(err, float((g.double() - w.double()).abs().nan_to_num(0.0).max()))
+    return err
+
+
 @contextlib.contextmanager
 def _list_builder_calls(cs):
     """Counts the calls of `cuda_sweep.tile_block_lists` inside the block
@@ -292,14 +345,17 @@ def main(argv=None) -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from cbtr_tpu_torch.models import (
         dimpled_lens_scene,
+        ellipsoid_lens_scene,
         lens_model,
         robot_lens_scene,
         sphere_lens_scene,
     )
     from cbtr_tpu_torch.benchmarks import fma_peak as fp
     from cbtr_tpu_torch.harness import kernel_ab
+    from cbtr_tpu_torch.harness.profile_step import _busy
     from cbtr_tpu_torch.ops import cuda_codes as cc
     from cbtr_tpu_torch.ops import cuda_sweep as cs
+    from cbtr_tpu_torch.ops import cuda_tables as ct
     from cbtr_tpu_torch.ops import cuda_winner as cw
     from cbtr_tpu_torch.ops import intersect as ix
 
@@ -309,7 +365,9 @@ def main(argv=None) -> int:
     dev = torch.device("cuda", 0)
     card = _card()
     kernels = {"sweep_select": cs.sweep_select, "winner": cw.sweep_winner,
-               "sweep_codes": cc.sweep_codes_cuda, "fma_chains": fp.fma_chains}
+               "sweep_codes": cc.sweep_codes_cuda, "fma_chains": fp.fma_chains,
+               "tables": ct.build_tables}
+    table_lenses = {}       # name -> patches, for phase t
     t_script = time.perf_counter()
 
     # ---- 0: device, versions, kernel build -------------------------------
@@ -317,7 +375,7 @@ def main(argv=None) -> int:
     build_log = cs.build_library()
     build_s = time.perf_counter() - t
     print(f"[0] card: {card} | torch {torch.__version__} cuda {torch.version.cuda} "
-          f"| python {sys.version.split()[0]} | K1 + K2 + K3 + K4 build (one nvcc "
+          f"| python {sys.version.split()[0]} | K1 + K2 + K3 + K4 + tables build (one nvcc "
           f"per source, in parallel) {build_s:.3f} s",
           flush=True)
     for line in build_log.splitlines():
@@ -335,6 +393,7 @@ def main(argv=None) -> int:
     print(f"[1] scene: robot.stl lens, P = {P} patches, R = {R} rays "
           f"(built in {time.perf_counter() - t:.3f} s)", flush=True)
     patches, start, direction = scene.patches, scene.start, scene.direction
+    table_lenses["robot"] = patches
 
     # ---- 2: K1 against its plain twin ------------------------------------
     got = cs.sweep_select(patches, start, direction)
@@ -387,7 +446,8 @@ def main(argv=None) -> int:
     # is the one that descends at 64^2 rays (1e-3) scaled by (64/512)^4.
     losses, g_max, g_n, main_launches = _train(lens_model, scene, kernels, 2.5e-7)
     assert main_launches == {"sweep_select": 6, "winner": 0, "sweep_codes": 0,
-                             "fma_chains": 0, "tile_block_lists": 0}, main_launches
+                             "fma_chains": 0, "tables": 6,
+                             "tile_block_lists": 0}, main_launches
     print(f"[4] train: 3 SGD steps, loss {losses}, |grad cp| max {g_max:.4e}, "
           f"grad n {g_n:.4e}, launches {main_launches}", flush=True)
 
@@ -447,12 +507,13 @@ def main(argv=None) -> int:
     rp, rs, rd = refined.patches, refined.start, refined.direction
     assert (rp.num_patches, rs.shape[0]) == (1800, 262144), rp.num_patches
     host_s = time.perf_counter() - t
+    table_lenses["refined"] = rp
     for counted in kernels.values():
         counted.launches = 0
     ix.intersect_rays(rp, rs[:4096], rd[:4096])
     routed = {k: v.launches for k, v in kernels.items()}
     assert routed == {"sweep_select": 0, "winner": 1, "sweep_codes": 0,
-                      "fma_chains": 0}, routed
+                      "fma_chains": 0, "tables": 1}, routed
     got = cw.sweep_winner(rp, rs, rd)
     ref = cw.sweep_winner_reference(rp, rs, rd)
     k2_cmp = _compare(got, ref)
@@ -473,14 +534,15 @@ def main(argv=None) -> int:
     torch.testing.assert_close(img, img_plain, rtol=1e-3, atol=1e-4)
     losses, g_max, g_n, large_launches = _train(lens_model, refined, kernels, 2.5e-7)
     assert large_launches == {"sweep_select": 0, "winner": 6, "sweep_codes": 0,
-                              "fma_chains": 0, "tile_block_lists": 0}, large_launches
+                              "fma_chains": 0, "tables": 6,
+                              "tile_block_lists": 0}, large_launches
     print(f"[a] render on K2 vs twin: max |d| {float((img - img_plain).abs().max()):.3e}; "
           f"train: 3 SGD steps, loss {losses}, |grad cp| max {g_max:.4e}, grad n "
           f"{g_n:.4e}, launches {large_launches}", flush=True)
     k2_launch_ms = _time_ms(lambda: cw.launch(k2_inputs))
     k2_ms = _time_ms(lambda: cw.sweep_winner(rp, rs, rd))
     k2_plain_ms = _time_ms(lambda: cw.sweep_winner_reference(rp, rs, rd),
-                           windows=3, inner=1, warmup=0)
+                           windows=1, inner=1, warmup=0)
     r_list_ms = _list_ms(cs, rp, rs, rd)
     r_render_ms = _time_ms(lambda: _render(refined))
     r_step_ms = _fixed_step_ms(lens_model, refined)
@@ -506,6 +568,7 @@ def main(argv=None) -> int:
     split4 = robot_lens_scene(res=512, split=4, device=dev)
     sp, ss, sd = split4.patches, split4.start, split4.direction
     assert sp.num_patches == 7200, sp.num_patches
+    table_lenses["split-4"] = sp
     got = cw.sweep_winner(sp, ss, sd)
     tiles = torch.arange(0, ss.shape[0] // cs.TILE_R, 8, device=dev)[:256]
     rays = (tiles[:, None] * cs.TILE_R + torch.arange(cs.TILE_R, device=dev)).reshape(-1)
@@ -530,6 +593,7 @@ def main(argv=None) -> int:
     split6 = robot_lens_scene(res=256, split=6, device=dev)
     sp, ss, sd = split6.patches, split6.start, split6.direction
     assert sp.num_patches == 16200, sp.num_patches
+    table_lenses["split-6"] = sp
     cmp = _compare(cw.sweep_winner(sp, ss, sd), cw.sweep_winner_reference(sp, ss, sd))
     _assert_exact("K2 split-6", cmp)
     _, s6_listed, s6_pairs, _ = _check_lists(cs, cw, "winner", sp, ss, sd)
@@ -549,6 +613,7 @@ def main(argv=None) -> int:
     dimpled = dimpled_lens_scene(res=256, device=dev)
     dp, ds, dd = dimpled.patches, dimpled.start, dimpled.direction
     assert dp.num_patches == 1890, dp.num_patches
+    table_lenses["dimpled"] = dp
     cmp = _compare(cw.sweep_winner(dp, ds, dd), cw.sweep_winner_reference(dp, ds, dd))
     _assert_exact("K2 dimpled", cmp)
     _check_lists(cs, cw, "winner", dp, ds, dd)
@@ -563,6 +628,7 @@ def main(argv=None) -> int:
     # side the unculled reference takes.  K1 cannot launch above 1024
     # patches, so at P = 1800 its twin stands in.
     sphere = sphere_lens_scene(res=256, sectors=17, belts=10, device=dev)
+    table_lenses["sphere 17x10"] = sphere.patches
     for name, sc in (("robot", scene), ("sphere 17x10", sphere), ("refined", refined)):
         p, s, d = sc.patches, sc.start, sc.direction
         k1_of = cs.sweep_select if p.num_patches <= cs._FUSED_MAX_P \
@@ -591,11 +657,48 @@ def main(argv=None) -> int:
         print(line, flush=True)
     del sphere
 
+    # ---- t: the table kernel against the plain versions --------------------------
+    table_lenses["ellipsoid 15x5"] = ellipsoid_lens_scene(res=16, device=dev).patches
+    assert len(table_lenses) == 7, sorted(table_lenses)
+    before = ct.build_tables.launches
+    tables_err = max(_check_tables(ct, name, lens) for name, lens in table_lenses.items())
+    assert ct.build_tables.launches - before == 14
+    print(f"[t] table kernel vs plain versions (patch table, bounds at block 16 and 32, "
+          f"neighbours): torch.equal on "
+          f"{', '.join(f'{n} (P = {q.num_patches})' for n, q in table_lenses.items())}",
+          flush=True)
+    tables_ms, tables_plain_ms = {}, {}
+    for name in ("robot", "refined", "split-6"):
+        lens = table_lenses[name]
+        tables_ms[name] = _time_ms(lambda: ct.build_tables(lens, cs.BLOCK_P))
+        tables_plain_ms[name] = _time_ms(lambda: ct.build_tables_reference(lens, cs.BLOCK_P))
+    # inputs read once (60 floats and 3 ids a patch), outputs written once;
+    # about 190 operations a patch (27 adds, 3 divisions, 10 norms of 9, 60
+    # min/max) and 13 a patch again in its block
+    tables_out = ct.build_tables(patches, cs.BLOCK_P)
+    tables_bound = _bound_ms(
+        203.0 * P, sum(x.numel() * x.element_size()
+                       for x in (*patches.leaves().values(), *tables_out)))
+    prepare_ops = {
+        "K1": _busy(lambda: cs.prepare_inputs(patches, start, direction), True),
+        "K2": _busy(lambda: cw.prepare_inputs(rp, rs, rd), True),
+        "K3": _busy(lambda: cc.prepare_inputs(patches, start[:65536], direction[:65536]), True)}
+    prepare_ms = _time_ms(lambda: cs.prepare_inputs(patches, start, direction))
+    print(f"[t] {card} | table kernel at block 16: "
+          f"{', '.join(f'{n} {tables_ms[n]:.4f} ms (plain versions {tables_plain_ms[n]:.3f} ms)' for n in tables_ms)}"
+          f"; bound {tables_bound[0]:.6f} ms ({tables_bound[1]}); prepare_inputs "
+          f"{R} x {P} {prepare_ms:.4f} ms; device ops of one prepare_inputs: "
+          f"{ {k: v['device_ops'] for k, v in prepare_ops.items()} }", flush=True)
+    assert all(0 < v["device_ops"] < 12 for v in prepare_ops.values()), prepare_ops
+    del tables_out, table_lenses
+
     # ---- f: K3 against its twin; the staged winners ----------------------------
     k3_rows = {}
     for name, sc in (("robot", scene), ("refined", refined)):
         p, s, d = sc.patches, sc.start[:65536], sc.direction[:65536]
-        code, dist = cc.sweep_codes_cuda(p, s, d)
+        with _list_builder_calls(cs) as list_calls:
+            code, dist = cc.sweep_codes_cuda(p, s, d)
+        assert list_calls[0] == 0, list_calls
         code_r, dist_r = cc.sweep_codes_reference(p, s, d)
         torch.cuda.synchronize()
         inter = (code_r & 7) == ix.WHAT_INTERSECT
@@ -618,20 +721,25 @@ def main(argv=None) -> int:
         assert codes_differ == 0 and dist_differ == 0 and int(inter.sum()) > 10000, name
         assert cmp[0] >= 0.999 and cmp[1] >= 0.999 and rejects <= 4, (name, cmp, rejects)
         del code, dist, code_r, dist_r, inter, staged
-        k3_in = cc.prepare_inputs(p, s, d)
+        _, sphere_listed, sphere_pairs = _check_codes_lists(cs, cc, p, s, d, False)
+        k3_in, listed, executed = _check_codes_lists(cs, cc, p, s, d, True)
+        print(f"[f] K3's in-kernel cull at {s.shape[0]} x {p.num_patches} (block "
+              f"{cc.BLOCK_P}): counts and lists equal tile_block_lists', {listed:.4f} of "
+              f"tile x block pairs listed and {executed} pairs evaluated (= "
+              f"evaluated_pairs) with the AABB leg, {sphere_listed:.4f} and {sphere_pairs} "
+              f"without; tile_block_lists calls inside sweep_codes_cuda "
+              f"{list_calls[0]}", flush=True)
         k3_out = cc.filled_outputs(k3_in)
-        executed = int(cs.evaluated_pairs(
-            cs.listed_blocks(k3_in.counts, k3_in.lists, k3_in.patch_t.shape[0], cc.BLOCK_P),
-            cs.sphere_hit_pairs(k3_in.patch_t, k3_in.rays_t), cc.BLOCK_P)[:, :p.num_patches].sum())
         k3_rows[name] = dict(
             max_err=max_err,
             bound=_bound_ms(executed * _flop_per_pair(),
                             sum(x.numel() * x.element_size() for x in
-                                (k3_in.counts, k3_in.lists, k3_in.rays_t, k3_in.patch_t, *k3_out))),
+                                (k3_in.rays_t, k3_in.patch_t, k3_in.bounds, *k3_out))
+                            + 4 * k3_in.rays_t.shape[1] // cs.TILE_R),
             alone=_time_ms(lambda: cc.launch(k3_in, k3_out)),
             fill=_time_ms(lambda: cc.launch(k3_in)),
             tables=_time_ms(lambda: cc.sweep_codes_cuda(p, s, d)),
-            plain=_time_ms(lambda: cc.sweep_codes_reference(p, s, d), windows=3, inner=1,
+            plain=_time_ms(lambda: cc.sweep_codes_reference(p, s, d), windows=1, inner=1,
                            warmup=0))
         del k3_in, k3_out
         torch.cuda.empty_cache()
@@ -756,6 +864,24 @@ def main(argv=None) -> int:
             "library_ms": None,
             "kernel_only_ms": k3_rows["robot"]["alone"],
             "kernel_and_fill_ms": k3_rows["robot"]["fill"],
+        },
+        {
+            "name": "tables",
+            "route": "cuda",
+            "source": "cbtr_tpu_torch/csrc/tables.cu",
+            "replaces": "cbtr_tpu/ops/pallas_sweep.py:598 pack_patch_table, :547 "
+                        "_block_spheres_cr, :502 _patch_boxes (XLA functions, no "
+                        "Pallas kernel)",
+            "launches": main_launches["tables"],
+            "launches_per_step": main_launches["tables"] / 3,
+            "max_abs_err": tables_err,
+            "ms": tables_ms["robot"],
+            "plain_ms": tables_plain_ms["robot"],
+            "bound_ms": tables_bound[0],
+            "bound_by": tables_bound[1],
+            "library_ms": None,
+            "prepare_inputs_ms": prepare_ms,
+            "prepare_inputs_device_ops": prepare_ops["K1"]["device_ops"],
         },
         {
             "name": "fma_chains",

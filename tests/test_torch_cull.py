@@ -1,7 +1,8 @@
-"""The (tile x block) cull that K1 and K2 run inside the kernel, on the CPU.
+"""The (tile x block) cull that K1, K2 (block 16) and K3 (block 32) run
+inside the kernel, on the CPU.
 
 `block_bounds` is the one [B, 12] table every cull reads; `tile_block_lists`
-(the plain twins' and K3's lists) is built on it and is held against the
+(the plain twins' lists) is built on it and is held against the
 JAX package's list builder; `tile_bitmap_reference` is the kernels' own
 cull, one (ray, block) at a time in csrc/block_walk.cuh's order, and must
 give the same [T, B] bitmap as the lists.  The lenses are the port's own
@@ -115,6 +116,27 @@ def test_tile_bitmap_reference_equals_lists(cases, case, use_aabb):
     assert got.shape == want.shape == (rays_t.shape[1] // cs.TILE_R, P_pad // cs.BLOCK_P)
     assert want.any() and not want.all()
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("use_aabb", [False, True])
+@pytest.mark.parametrize("case", ["robot", "sphere"])
+def test_tile_bitmap_reference_equals_lists_at_block_32(cases, case, use_aabb):
+    """K3's cull (block 32, inside the kernel): its plain version over
+    `block_bounds(p, 32)` lists exactly the blocks of
+    `tile_block_lists(block_p=32)`, and both equal the JAX package's lists
+    at block 32."""
+    port, ref, start, d = cases[case]
+    rays_t = _rays_t(start, d)
+    P_pad = cs.pack_patch_table(port).shape[0]
+    counts, lists = cs.tile_block_lists(port, rays_t, 32, use_aabb)
+    want = cs.listed_blocks(counts, lists, P_pad, 32)
+    got = cs.tile_bitmap_reference(cs.block_bounds(port, 32), rays_t, use_aabb)
+    assert got.shape == want.shape == (rays_t.shape[1] // cs.TILE_R, P_pad // 32)
+    assert want.any() and not want.all()
+    assert torch.equal(got, want)
+    c_ref, l_ref = jax_ps.tile_block_lists(ref, rays_t.numpy(), 128, 32, use_aabb)
+    np.testing.assert_array_equal(counts.numpy(), np.asarray(c_ref))
+    np.testing.assert_array_equal(lists.numpy(), np.asarray(l_ref))
 
 
 def test_tile_bitmap_reference_on_axis_parallel_rays(cases):

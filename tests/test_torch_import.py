@@ -15,6 +15,7 @@ import cbtr_tpu_torch
 import cbtr_tpu_torch.ops.cuda_sweep as cs
 import cbtr_tpu_torch.ops.cuda_winner as cw
 import cbtr_tpu_torch.ops.cuda_codes as cc
+import cbtr_tpu_torch.ops.cuda_tables as ct
 import cbtr_tpu_torch.benchmarks.fma_peak as fp
 import cbtr_tpu_torch.bench
 import cbtr_tpu_torch.harness.reference_tracer
@@ -36,6 +37,7 @@ assert not any(m == "cbtr_tpu" or m.startswith("cbtr_tpu.") for m in sys.modules
 assert cs._libraries == {}       # no kernel library built or loaded
 assert cs.sweep_select.launches == 0 and cw.sweep_winner.launches == 0
 assert cc.sweep_codes_cuda.launches == 0 and fp.fma_chains.launches == 0
+assert ct.build_tables.launches == 0
 print("IMPORT_OK")
 """
 
@@ -60,7 +62,7 @@ def test_cpu_wrapper_runs_the_twin_without_launching():
     from cbtr_tpu_torch.bezier import build_from_trimesh
     from cbtr_tpu_torch.ops import cuda_sweep as cs
 
-    patches = build_from_trimesh(preprocess(make_unit_sphere(7, 3)))
+    patches = build_from_trimesh(preprocess(make_unit_sphere(7, 3)), device="cpu")
     rng = torch.Generator().manual_seed(0)
     start = torch.randn(40, 3, generator=rng) * 0.1 - torch.tensor([3.0, 0, 0])
     direction = torch.nn.functional.normalize(

@@ -46,7 +46,7 @@ def _fan(n, seed):
 
 
 def _to_port(patches):
-    return patches_from_numpy({k: np.asarray(v) for k, v in patches._asdict().items()})
+    return patches_from_numpy({k: np.asarray(v) for k, v in patches._asdict().items()}, device="cpu")
 
 
 @pytest.fixture(scope="module")

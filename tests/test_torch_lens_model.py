@@ -34,7 +34,7 @@ LR = 1e-3
 
 def _to_port(scene):
     patches = patches_from_numpy(
-        {k: np.asarray(v) for k, v in scene.patches._asdict().items()})
+        {k: np.asarray(v) for k, v in scene.patches._asdict().items()}, device="cpu")
     return (patches, torch.tensor(np.asarray(scene.start)),
             torch.tensor(np.asarray(scene.direction)),
             torch.tensor(np.asarray(scene.screen_plane)))

@@ -25,7 +25,7 @@ def robot():
         mp.setenv("CBTR_NATIVE", "0")
         scene = jax_scenes.robot_lens_scene(res=16)
     port = patches_from_numpy({k: np.asarray(v)
-                               for k, v in scene.patches._asdict().items()})
+                               for k, v in scene.patches._asdict().items()}, device="cpu")
     s, d = np.asarray(scene.start), np.asarray(scene.direction)
     # eight rays the tensor path sees hit the lens and four it sees miss
     what = intersect_rays(port, torch.tensor(s), torch.tensor(d)).what.numpy()

@@ -59,7 +59,7 @@ TABLE = [
 
 
 def _to_port(patches):
-    return patches_from_numpy({k: np.asarray(v) for k, v in patches._asdict().items()})
+    return patches_from_numpy({k: np.asarray(v) for k, v in patches._asdict().items()}, device="cpu")
 
 
 def _jax_ellipsoid_mesh(sectors, belts):
@@ -131,7 +131,7 @@ def test_thick_sets_of_own_builds_agree(name, monkeypatch):
         ref = jax_scenes.robot_lens_scene(res=8).patches
     else:
         sectors, belts = (7, 3) if name == "ellipsoid7x3" else (15, 5)
-        port = build_from_trimesh(preprocess(make_ellipsoid(sectors, belts, AXES)))
+        port = build_from_trimesh(preprocess(make_ellipsoid(sectors, belts, AXES)), device="cpu")
         ref = jax_build(_jax_ellipsoid_mesh(sectors, belts))
     thick_p = _thick(_face_heights(port), port.control_points.numpy())
     thick_r = _thick(np.asarray(jax_face_heights(ref)), np.asarray(ref.control_points))
@@ -141,7 +141,7 @@ def test_thick_sets_of_own_builds_agree(name, monkeypatch):
 
 @pytest.mark.parametrize("steps,sectors,belts,divisor,expected,rtol", TABLE)
 def test_measure_approximation_table(steps, sectors, belts, divisor, expected, rtol):
-    err = measure_approximation(steps, sectors, belts, AXES, divisor)
+    err = measure_approximation(steps, sectors, belts, AXES, divisor, device="cpu")
     assert err == pytest.approx(expected, rel=rtol)
 
 

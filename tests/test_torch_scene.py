@@ -75,7 +75,7 @@ def test_sphere_preprocess_and_build_match_jax():
     port_mesh = preprocess(make_unit_sphere(7, 3))
     jax_mesh = jax_preprocess(jax_sphere(7, 3), use_native=False)
     _assert_topology_equal(port_mesh, jax_mesh)
-    port = build_from_trimesh(port_mesh)
+    port = build_from_trimesh(port_mesh, device="cpu")
     ref = jax_build(jax_mesh)
     assert port.num_patches == ref.num_patches == 3 * len(jax_mesh)
     np.testing.assert_array_equal(port.neighbours.numpy(), np.asarray(ref.neighbours))
@@ -89,8 +89,8 @@ def test_sphere_preprocess_and_build_match_jax():
 def test_robot_preprocess_and_build_match_jax():
     port_mesh, jax_mesh = _port_robot_mesh(), _jax_robot_mesh()
     _assert_topology_equal(port_mesh, jax_mesh)
-    _assert_no_further_from_f64(build_from_trimesh(port_mesh), jax_build(jax_mesh),
-                                build_from_trimesh(port_mesh, dtype=torch.float64))
+    _assert_no_further_from_f64(build_from_trimesh(port_mesh, device="cpu"), jax_build(jax_mesh),
+                                build_from_trimesh(port_mesh, device="cpu", dtype=torch.float64))
 
 
 _JAX_F64_BUILD = r"""
@@ -138,7 +138,7 @@ def test_robot_float64_build_formulas_match_jax(tmp_path):
                           cwd=repo, env=env)
     assert proc.returncode == 0, proc.stderr[-3000:]
     ref = np.load(out)
-    port = build_from_trimesh(_port_robot_mesh(), dtype=torch.float64)
+    port = build_from_trimesh(_port_robot_mesh(), device="cpu", dtype=torch.float64)
     assert ref["control_points"].dtype == np.float64
     np.testing.assert_array_equal(port.neighbours.numpy(), ref["neighbours"])
     for name in LEAVES:
@@ -213,7 +213,7 @@ def test_large_scene_matches_jax(monkeypatch, name, num_patches):
 def test_packed_table_round_trip():
     from cbtr_tpu_torch.bezier import BezierPatches
 
-    patches = build_from_trimesh(preprocess(make_unit_sphere(7, 3)))
+    patches = build_from_trimesh(preprocess(make_unit_sphere(7, 3)), device="cpu")
     back = BezierPatches.from_packed_f32(patches.packed_f32(), patches.neighbours)
     for name, leaf in patches.leaves().items():
         assert torch.equal(getattr(back, name), leaf), name

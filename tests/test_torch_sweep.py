@@ -56,7 +56,7 @@ def _fan(n, seed):
 @pytest.fixture(scope="module")
 def sphere():
     ref = jax_build(jax_preprocess(jax_sphere(7, 3), use_native=False))
-    return ref, patches_from_numpy(_numpy_leaves(ref))
+    return ref, patches_from_numpy(_numpy_leaves(ref), device="cpu")
 
 
 @pytest.fixture(scope="module")
@@ -65,7 +65,7 @@ def robot():
         mp.setenv("CBTR_NATIVE", "0")
         scene = jax_scenes.robot_lens_scene(res=32)
     ref = scene.patches
-    return (ref, patches_from_numpy(_numpy_leaves(ref)),
+    return (ref, patches_from_numpy(_numpy_leaves(ref), device="cpu"),
             np.asarray(scene.start), np.asarray(scene.direction))
 
 
@@ -219,7 +219,7 @@ def test_tie_goes_to_lowest_patch_id(sphere):
     tied = {k: np.concatenate([v[w[0]:w[0] + 1], v]) for k, v in leaves.items()}
     tied["neighbours"] = np.concatenate(
         [leaves["neighbours"][w[0]:w[0] + 1], leaves["neighbours"]]) + 1
-    tied_port = patches_from_numpy(tied)
+    tied_port = patches_from_numpy(tied, device="cpu")
     tied_jax = type(ref_p)(**{k: np.asarray(v) for k, v in tied.items()})
     for cull in (True, False):
         any_hit, win, dist = _port(cs.sweep_select_reference, tied_port, start, d,
@@ -255,7 +255,7 @@ from cbtr_tpu_torch.ops import cuda_sweep as cs
 scene = scenes.robot_lens_scene(res=32)
 s, d = np.asarray(scene.start), np.asarray(scene.direction)
 ref = [np.asarray(x) for x in ps.sweep_select_pallas(scene.patches, s, d, interpret=True)]
-port = patches_from_numpy({k: np.asarray(v) for k, v in scene.patches._asdict().items()})
+port = patches_from_numpy({k: np.asarray(v) for k, v in scene.patches._asdict().items()}, device="cpu")
 got = [x.numpy() for x in cs.sweep_select_reference(port, torch.as_tensor(s), torch.as_tensor(d))]
 assert np.mean(got[0] == ref[0]) >= 0.999
 both = got[0] & ref[0]

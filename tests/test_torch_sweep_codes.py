@@ -70,7 +70,7 @@ def cases():
          (np.asarray(robot.start), np.asarray(robot.direction))),
     ):
         out[name] = dict(
-            ref=ref, port=patches_from_numpy(_numpy_leaves(ref)), start=start, d=d,
+            ref=ref, port=patches_from_numpy(_numpy_leaves(ref), device="cpu"), start=start, d=d,
             pallas=[np.asarray(x) for x in
                     jax_ps.sweep_codes_pallas(ref, start, d, interpret=True)])
     code, dist = jax_ix.sweep_codes_xla(robot.patches, robot.start, robot.direction)
@@ -195,7 +195,8 @@ def test_cpu_wrapper_runs_the_twin_and_launch_refuses_cpu(cases):
     for g, w in zip(got, want):
         assert torch.equal(g, w)
     inputs = cc.prepare_inputs(c["port"], s, d)
-    assert inputs.lists.shape == (inputs.patch_t.shape[0] // 32, 2)
+    assert inputs.bounds.shape == (inputs.patch_t.shape[0] // 32, 12)
+    assert not hasattr(inputs, "counts") and not hasattr(inputs, "lists")
     with pytest.raises(ValueError, match="CUDA"):
         cc.launch(inputs)
     with pytest.raises(ValueError, match="CUDA"):

@@ -56,7 +56,7 @@ def _port(fn, patches, start, direction):
 @pytest.fixture(scope="module")
 def sphere():
     ref = jax_build(jax_preprocess(jax_sphere(7, 3), use_native=False))
-    return ref, patches_from_numpy(_numpy_leaves(ref))
+    return ref, patches_from_numpy(_numpy_leaves(ref), device="cpu")
 
 
 @pytest.fixture(scope="module")
@@ -71,7 +71,7 @@ def refined():
     pallas = jax_ps.sweep_winner_pallas(ref, start, d, interpret=True)
     code, dist = jax_ix.sweep_codes_xla(ref, start, d)
     xla = jax_ix.select_candidates(code, dist, ref.neighbours)
-    return dict(ref=ref, port=patches_from_numpy(_numpy_leaves(ref)), start=start,
+    return dict(ref=ref, port=patches_from_numpy(_numpy_leaves(ref), device="cpu"), start=start,
                 d=d, pallas=[np.asarray(x) for x in pallas],
                 xla=[np.asarray(x) for x in xla])
 
@@ -187,7 +187,7 @@ def test_winner_twin_tie_goes_to_lowest_patch_id(sphere):
     tied = {k: np.concatenate([v[w[0]:w[0] + 1], v]) for k, v in leaves.items()}
     tied["neighbours"] = np.concatenate(
         [leaves["neighbours"][w[0]:w[0] + 1], leaves["neighbours"]]) + 1
-    any_hit, win, dist = _port(cw.sweep_winner_reference, patches_from_numpy(tied),
+    any_hit, win, dist = _port(cw.sweep_winner_reference, patches_from_numpy(tied, device="cpu"),
                                start, d)
     assert any_hit.all() and (win == 0).all(), win
 
