@@ -98,3 +98,28 @@ def make_train_step(screen_plane, target, resolution: int = 128,
         return params, loss.detach()
 
     return step
+
+
+def make_opt_train_step(screen_plane, target, resolution: int = 128,
+                        extent: float = 4.0, chunk_size: int = 0):
+    """Optimizer step for lens design runs: (params, opt, start, direction)
+    -> (params, opt, loss).
+
+    Counterpart of the JAX package's optax step (the plain SGD of
+    `make_train_step` converges too slowly on the stiff control-point loss
+    surface of the car-lamp scenario, reference/README.md:159-165).  `opt`
+    is a `torch.optim.Optimizer` over [params.control_points,
+    params.refractive_index], e.g. `torch.optim.Adam(..., lr=lr)`, which
+    has optax.adam's defaults (b1 0.9, b2 0.999, eps 1e-8).  The loss is
+    `lens_loss`, as in `make_train_step`; the parameters move in place."""
+
+    def step(params: LensParams, opt, start, direction):
+        opt.zero_grad(set_to_none=True)
+        loss = lens_loss(params, start, direction, screen_plane, target,
+                         resolution=resolution, extent=extent,
+                         chunk_size=chunk_size)
+        loss.backward()
+        opt.step()
+        return params, opt, loss.detach()
+
+    return step

@@ -28,7 +28,7 @@ from ..mesh.core import (
     make_ellipsoid,
     make_unit_sphere,
 )
-from ..render.camera import ortho_ray_grid
+from ..render.camera import OrthoGrid, grid_is_tileable, ortho_ray_grid
 
 
 def robot_stl_path() -> str:
@@ -47,6 +47,17 @@ SCREEN_X = 10.0
 ROBOT_BEAM_WIDTH = 1.8      # collimated-beam edge for the robot fixture
 SPHERE_BEAM_WIDTH = 1.6     # ... for the unit-sphere fixture
 ELLIPSOID_BEAM_WIDTH = 3.0  # ... for the ellipsoid/dimpled fixtures
+
+
+def scene_ortho_grid(res: int, beam_width: float = ROBOT_BEAM_WIDTH) -> OrthoGrid:
+    """The OrthoGrid of `_finish`'s host ray grid: the same rays in the same
+    order (the 16x8-block tile order when the resolution admits it),
+    synthesized on the device by `OrthoGrid.rays_at`."""
+    return OrthoGrid(
+        center=(0.0, 0.0, 0.0), direction=(1.0, 0.0, 0.0),
+        up=(0.0, 0.0, 1.0), width=beam_width, height=beam_width,
+        res_x=res, res_y=res, tiled=grid_is_tileable(res, res),
+    )
 
 
 class LensScene(NamedTuple):

@@ -6,15 +6,20 @@ splatted bilinearly into an irradiance image.  The splat keeps the whole
 pipeline differentiable: d(image)/d(control points, refractive index, ray
 origins) flows through the hit positions.
 
+Also the point-source renders (host-sampled and device-made emitter rays)
+and the surface-inspection render, `render_surface_normals`.
+
 The outer-product splat is one plain f32 matrix product (`torch.matmul`, as
 the JAX package left it to XLA); the callers on the GPU keep TF32 off so the
 product runs in full f32.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .. import geom
+from ..ops.intersect import WHAT_INTERSECT, intersect_rays
 from ..optics.lens import trace_through_lens
 
 
@@ -114,3 +119,60 @@ def render_lens_image(patches, refractive_index, start, direction, screen_plane,
     # dead rays keep finite positions; weight 0 removes them from the image
     hit2d = torch.where(live[..., None], hit2d, 0.0)
     return splat_bilinear(hit2d.reshape(-1, 2), w.reshape(-1), extent, resolution)
+
+
+def render_emitter_image(patches, refractive_index, emitter, n_rays: int,
+                         origin, screen_plane, extent: float = 4.0,
+                         resolution: int = 128, chunk_size: int = 0):
+    """Point-source render: hemisphere-emitter rays -> lens -> screen image.
+
+    The emitter's belt/patch bin (reference/hostUtil.cpp:9-13, designed
+    there for GPU warp coherence) is the ray sort key: rays are ordered by
+    bin before tracing so each 128-ray sweep tile sees spatially coherent
+    directions and the kernels' cull can skip blocks.  The bilinear splat is
+    order-invariant, so no unsort pass is needed.
+
+    emitter: UniformHemisphere (host-side sampling + binning); the rays are
+    uploaded to the device of `patches`.
+    origin: [3] emitter position; rays head into the +x hemisphere."""
+    d, patch = emitter.sample(n_rays)
+    order = np.argsort(patch, kind="stable")
+    dev = patches.device
+    d = torch.as_tensor(d[order], device=dev)
+    s = torch.as_tensor(np.asarray(origin, np.float32), device=dev).expand(d.shape)
+    return render_lens_image(
+        patches, refractive_index, s, d, screen_plane, extent=extent,
+        resolution=resolution, chunk_size=chunk_size,
+    )
+
+
+def render_emitter_image_device(patches, refractive_index, emitter,
+                                screen_plane, extent: float = 4.0,
+                                resolution: int = 128, chunk_size: int = 0):
+    """Point-source render with rays synthesized on the device of `patches`,
+    pre-sorted by the belt/patch bin (emitters.DeviceEmitter): no host
+    sampling, no host argsort, no ray upload.  The per-ray unbiasing
+    weights ride the splat's weight input."""
+    idx = torch.arange(emitter.n_rays, dtype=torch.int64, device=patches.device)
+    s, d, w = emitter.rays_at(idx)
+    return render_lens_image(
+        patches, refractive_index, s, d, screen_plane, extent=extent,
+        resolution=resolution, chunk_size=chunk_size, weights=w,
+    )
+
+
+def render_surface_normals(patches, start, direction, light_dir,
+                           chunk_size: int = 0, backend: str = "auto"):
+    """Surface-inspection render: first-hit Lambertian shading + depth.
+
+    Returns (shade [N], depth [N], hit_mask [N]) for a ray batch; the
+    replacement for the reference's Blender STL inspection loop."""
+    hit = intersect_rays(patches, start, direction, chunk_size=chunk_size,
+                         backend=backend)
+    ok = hit.what == WHAT_INTERSECT
+    light = geom.safe_normalize(torch.as_tensor(light_dir, dtype=torch.float32,
+                                                device=hit.normal.device))
+    shade = torch.clamp(-geom.dot(hit.normal, light), 0.0, 1.0)
+    shade = torch.where(ok, shade, 0.0)
+    depth = torch.where(ok, hit.distance, 0.0)
+    return shade, depth, ok

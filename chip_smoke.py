@@ -18,7 +18,10 @@ checks them:
   (cbtr_tpu_torch/csrc/fma_peak.cu);
 * the table kernel (cbtr_tpu_torch/csrc/tables.cu), which builds K1's, K2's
   and K3's patch table, block bounds and neighbour table at every call of
-  theirs: twice a train step.
+  theirs: twice a train step;
+* the fit loop (`fit_lens`, `fit_emitter_lens`: SGD and Adam, checkpoints
+  and resume) on K1 and K2, and the rays made on the device (DeviceEmitter,
+  OrthoGrid) with the renders that take them.
 
 Phases:
 
@@ -75,6 +78,29 @@ Phases:
   h  `python -m cbtr_tpu_torch.bench --preset smoke` in a subprocess: its
      last line parses and holds the headline keys; its launch counts (reset
      at the bench's start, read at its end) show K1, K3 and K4 launched
+  j  the fit loop on the headline (robot, 512^2, 128^2 zero target):
+     `fit_lens` 6 SGD steps at phase 4's step size with a checkpoint every 2
+     (counts reset before it: K1 12, tables 12, K2 0; the loss falls;
+     ckpt_2/4/6 written); a fresh fit of 3 steps resumed to 6, and a second
+     uninterrupted fit, against the first, with torch's default backward
+     (the gather's atomics: printed) and in its deterministic mode (the
+     resumed control points within 1e-6 x max |cp|, losses within 1e-5
+     relative); the resumed fit starts on the killed one's parameters bit
+     for bit; ckpt_6 loaded back into LensParams gives the fit's loss; 3
+     Adam steps fall; ms per fit step, SGD (also in the deterministic mode)
+     and Adam
+  k  the large-P fit: `fit_lens` 3 SGD steps on the refined robot (P = 1800,
+     512^2): K2 6, K1 0, the loss falls; ms per fit step, SGD and Adam
+  l  rays made on the device: DeviceEmitter (262,144 rays, 16 belts) on the
+     card against its own CPU run (threefry draws, bins equal; directions
+     and weights within 1e-6), sorted by bin, sum of weights n;
+     render_emitter_image_device (2 K1 launches) against the host-sampled
+     render_emitter_image (flux within 0.12); fit_emitter_lens 3 SGD steps
+     from a perturbed lens toward the true lens's image (the loss falls);
+     scene_ortho_grid(512).rays_at torch.equal to the scene's rays and its
+     render to the host grid's image, at 4096^2 torch.equal to the host
+     grid; render_surface_normals at 512^2 (1 K1 launch) against the plain
+     twin; times of rays_at, the emitter renders and the 4096^2 grid
   i  with --against DIR (the root of another checkout, e.g. an earlier
      commit unpacked by `git archive`): that checkout against this one, each
      in fresh processes, in turns (DIR, this, this, DIR): K1, K2 and K3
@@ -329,6 +355,58 @@ def _render(scene, backend="auto"):
         return render_lens_image(scene.patches, scene.refractive_index, scene.start,
                                  scene.direction, scene.screen_plane, resolution=128,
                                  backend=backend)
+
+
+@contextlib.contextmanager
+def _deterministic(on: bool):
+    """torch's deterministic algorithms inside the block (the gather's
+    backward without atomics), if `on`."""
+    import torch
+
+    torch.use_deterministic_algorithms(on, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def _fit_step_ms(fit_lens, sc, target, optimizer, learning_rate, steps=4) -> float:
+    """Host-clock ms per step of a `fit_lens` run (each step reads its loss
+    back, so the clock covers the device), after a one-step warm-up."""
+    import torch
+
+    fit_lens(sc, target, 1, learning_rate=learning_rate, optimizer=optimizer)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    fit_lens(sc, target, steps, learning_rate=learning_rate, optimizer=optimizer)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t) / steps * 1e3
+
+
+def _counted(kernels, fn):
+    """Run fn with every launch count set to 0 just before and read just
+    after: (fn's result, {kernel: launches})."""
+    for counted in kernels.values():
+        counted.launches = 0
+    out = fn()
+    return out, {k: v.launches for k, v in kernels.items()}
+
+
+def _bin_sorted_fraction(d, belts: int) -> float:
+    """Share of adjacent rays whose reference belt/patch bin, recomputed from
+    the directions (reference/hostUtil.cpp:9-13), does not decrease."""
+    import numpy as np
+
+    from cbtr_tpu_torch.render.emitters import UniformHemisphere, belt_patch_counts
+
+    d = d.cpu().numpy()
+    hemi = UniformHemisphere(belts=belts)
+    incidence = np.arccos(np.clip(d[:, 0], -1.0, 1.0))
+    turn = np.arctan2(d[:, 2], d[:, 1]) % (2 * np.pi)
+    belt = np.minimum((incidence / hemi.belt_width).astype(np.int64), belts - 1)
+    patch = hemi.patch_starts[belt] + np.minimum(
+        (turn / hemi.patch_widths[belt]).astype(np.int64), belt_patch_counts(belts)[belt] - 1)
+    return float(np.mean(np.diff(patch) >= 0))
 
 
 def main(argv=None) -> int:
@@ -802,6 +880,213 @@ def main(argv=None) -> int:
           f"sweep {bench['breakdown_ms']['sweep_staged']} ms, FMA peak "
           f"{bench['fma_peak_tflops']} TFLOP/s, launches {bench_launches}", flush=True)
 
+
+    # ---- j: the fit loop on the headline -------------------------------------
+    import tempfile
+
+    import numpy as np
+
+    from cbtr_tpu_torch.models.fit import fit_emitter_lens, fit_lens
+    from cbtr_tpu_torch.utils import checkpoint as ckpt
+
+    torch.cuda.empty_cache()
+    target = torch.zeros((128, 128), dtype=torch.float32, device=dev)
+    sgd_lr, adam_lr = 2.5e-7, 1e-4     # phase 4's step size; Adam moves by lr
+    with tempfile.TemporaryDirectory() as tmp:
+        full = os.path.join(tmp, "full")
+        (p_full, l_full), fit_launches = _counted(kernels, lambda: fit_lens(
+            scene, target, 6, checkpoint_dir=full, checkpoint_every=2,
+            learning_rate=sgd_lr))
+        assert fit_launches == {"sweep_select": 12, "winner": 0, "sweep_codes": 0,
+                                "fma_chains": 0, "tables": 12}, fit_launches
+        assert l_full[-1] < l_full[0], l_full
+        ckpts = sorted(os.listdir(full))
+        assert ckpts == ["ckpt_2.npz", "ckpt_4.npz", "ckpt_6.npz"], ckpts
+        # a killed fit resumed from its checkpoint, against the uninterrupted
+        # one: with torch's default (atomic) backward, and in its
+        # deterministic mode, where the two must land together
+        resume = {}
+        for mode in ("default", "deterministic"):
+            with _deterministic(mode == "deterministic"):
+                ref = (p_full, l_full) if mode == "default" else fit_lens(
+                    scene, target, 6, learning_rate=sgd_lr)
+                part = os.path.join(tmp, mode)
+                p_3, _ = fit_lens(scene, target, 3, checkpoint_dir=part,
+                                  checkpoint_every=2, learning_rate=sgd_lr)
+                p_res, l_res = fit_lens(scene, target, 6, checkpoint_dir=part,
+                                        checkpoint_every=2, learning_rate=sgd_lr)
+                again = fit_lens(scene, target, 6, learning_rate=sgd_lr)
+            assert len(l_res) == 3 and sorted(os.listdir(part)) == [
+                "ckpt_2.npz", "ckpt_3.npz", "ckpt_4.npz", "ckpt_6.npz"]
+            # the resumed fit starts exactly where the killed one stopped
+            at_3, step = ckpt.load_params(os.path.join(part, "ckpt_3.npz"),
+                                          scene.patches, dev)
+            assert step == 3 and torch.equal(at_3.control_points, p_3.control_points)
+            resume[mode] = {
+                name: (float((p.control_points - ref[0].control_points).detach().abs().max()),
+                       max(abs(a - b) / abs(b) for a, b in zip(losses[-3:], ref[1][3:])))
+                for name, (p, losses) in (("resumed", (p_res, l_res)), ("again", again))}
+        cp_max = float(p_full.control_points.detach().abs().max())
+        d_cp, d_loss = resume["deterministic"]["resumed"]
+        assert d_cp <= 1e-6 * cp_max and d_loss <= 1e-5, (resume, cp_max)
+        loaded, step = ckpt.load_params(os.path.join(full, "ckpt_6.npz"), scene.patches,
+                                         dev)
+        with torch.no_grad():
+            loss_loaded = float(lens_model.lens_loss(loaded, start, direction,
+                                                     scene.screen_plane, target))
+            loss_fit = float(lens_model.lens_loss(p_full, start, direction,
+                                                  scene.screen_plane, target))
+        assert step == 6 and torch.equal(loaded.control_points, p_full.control_points)
+        assert abs(loss_loaded - loss_fit) <= 1e-6 * loss_fit, (loss_loaded, loss_fit)
+    _, l_adam = fit_lens(scene, target, 3, learning_rate=adam_lr, optimizer="adam")
+    assert l_adam[-1] < l_adam[0], l_adam
+    fit_ms = {"sgd": _fit_step_ms(fit_lens, scene, target, None, sgd_lr),
+              "adam": _fit_step_ms(fit_lens, scene, target, "adam", adam_lr)}
+    with _deterministic(True):
+        fit_ms["sgd_deterministic"] = _fit_step_ms(fit_lens, scene, target, None, sgd_lr)
+    print(f"[j] fit_lens on the headline ({R} x {P}), 6 SGD steps at {sgd_lr}: loss "
+          f"{l_full}, checkpoints {ckpts}, "
+          f"launches {fit_launches}; resumed at 3 to 6 and run again, against the "
+          f"uninterrupted fit, (max |d cp|, max |d loss| / loss) with max |cp| "
+          f"{cp_max:.4f}: {resume}; ckpt_6 loaded: loss "
+          f"{loss_loaded!r} vs the fit's {loss_fit!r}; 3 Adam steps at lr {adam_lr}: loss "
+          f"{l_adam}", flush=True)
+    print(f"[j] {card} | fit step {R} rays: SGD {fit_ms['sgd']:.3f} ms, Adam "
+          f"{fit_ms['adam']:.3f} ms, SGD in torch's deterministic mode "
+          f"{fit_ms['sgd_deterministic']:.3f} ms", flush=True)
+
+    # ---- k: the large-P fit ---------------------------------------------------
+    (_, l_big), big_launches = _counted(kernels, lambda: fit_lens(
+        refined, target, 3, learning_rate=sgd_lr))
+    assert big_launches == {"sweep_select": 0, "winner": 6, "sweep_codes": 0,
+                            "fma_chains": 0, "tables": 6}, big_launches
+    assert l_big[-1] < l_big[0], l_big
+    big_ms = {"sgd": _fit_step_ms(fit_lens, refined, target, None, sgd_lr),
+              "adam": _fit_step_ms(fit_lens, refined, target, "adam", adam_lr)}
+    print(f"[k] fit_lens on the refined robot ({rs.shape[0]} x {rp.num_patches}), 3 SGD "
+          f"steps: loss {l_big}, launches {big_launches}", flush=True)
+    print(f"[k] {card} | fit step {rs.shape[0]} rays x {rp.num_patches} patches: SGD "
+          f"{big_ms['sgd']:.3f} ms, Adam {big_ms['adam']:.3f} ms", flush=True)
+
+    # ---- l: rays made on the device ---------------------------------------------
+    from cbtr_tpu_torch.models import params_from_scene, scene_ortho_grid, scenes
+    from cbtr_tpu_torch.models.fit import emitter_rays
+    from cbtr_tpu_torch.render import camera
+    from cbtr_tpu_torch.render import render as rd
+    from cbtr_tpu_torch.render.emitters import DeviceEmitter, UniformHemisphere
+
+    origin = tuple((scenes.LENS_CENTER - np.array([3.0, 0, 0], np.float32)).tolist())
+    n_em = 262144
+    em = DeviceEmitter(origin=origin, belts=16, n_rays=n_em, seed=1)
+    idx = torch.arange(n_em, device=dev)
+    for got, want in zip(em.bins_at(idx), em.bins_at(idx.cpu())):
+        assert torch.equal(got.cpu(), want)
+    es, ed, ew = em.rays_at(idx)
+    es_c, ed_c, ew_c = em.rays_at(idx.cpu())
+    em_dd = float((ed.cpu() - ed_c).abs().max())
+    em_dw = float((ew.cpu() - ew_c).abs().max())
+    assert torch.equal(es.cpu(), es_c) and em_dd <= 1e-6 and em_dw <= 1e-6, (em_dd, em_dw)
+    em_sorted = _bin_sorted_fraction(ed, 16)
+    em_wsum = float(ew.double().sum())
+    assert em_sorted >= 0.995 and abs(em_wsum - n_em) <= 1e-3 * n_em, (em_sorted, em_wsum)
+    del es_c, ed_c, ew_c
+
+    def _emit_device():
+        with torch.no_grad():
+            return rd.render_emitter_image_device(patches, scene.refractive_index, em,
+                                                  scene.screen_plane)
+
+    def _emit_host():
+        with torch.no_grad():
+            return rd.render_emitter_image(patches, scene.refractive_index,
+                                           UniformHemisphere(16, seed=1), n_em,
+                                           np.asarray(origin, np.float32),
+                                           scene.screen_plane)
+
+    img_dev, em_launches = _counted(kernels, _emit_device)
+    img_host = _emit_host()
+    assert em_launches["sweep_select"] == 2 and em_launches["winner"] == 0, em_launches
+    f_dev, f_host = float(img_dev.sum()), float(img_host.sum())
+    flux_gap = abs(f_dev - f_host) / max(f_dev, f_host)
+    assert torch.isfinite(img_dev).all() and f_dev > 0 and flux_gap < 0.12, (f_dev, f_host)
+    em_ms = {"rays_at": _time_ms(lambda: em.rays_at(idx)),
+             "device": _time_ms(_emit_device), "host": _time_ms(_emit_host)}
+    print(f"[l] DeviceEmitter({n_em} rays, 16 belts, seed 1) on the card vs the CPU: u, "
+          f"patch, j, cnt equal, max |d direction| {em_dd:.3e}, max |d weight| "
+          f"{em_dw:.3e}; bin-sorted pairs {em_sorted:.6f}; sum w {em_wsum:.3f}; "
+          f"render_emitter_image_device: flux {f_dev:.3f} vs host emitter's {f_host:.3f} "
+          f"(gap {flux_gap:.4f}), launches {em_launches}", flush=True)
+    print(f"[l] {card} | DeviceEmitter.rays_at {n_em} rays {em_ms['rays_at']:.3f} ms; "
+          f"render_emitter_image_device {em_ms['device']:.3f} ms vs render_emitter_image "
+          f"(host sampling, sort, upload) {em_ms['host']:.3f} ms", flush=True)
+    del es, ed, ew, img_dev, img_host
+
+    es, ed = emitter_rays(n_em, belts=16, seed=1, origin=origin, device=dev)
+    true = params_from_scene(scene)
+    with torch.no_grad():
+        em_target = lens_model.lens_forward(true, es, ed, scene.screen_plane)
+    rng = np.random.default_rng(0)
+    pert = params_from_scene(scene)
+    with torch.no_grad():
+        pert.control_points += torch.as_tensor(rng.normal(
+            scale=2e-3, size=tuple(pert.control_points.shape)).astype(np.float32), device=dev)
+        pert.refractive_index += 0.01
+    emit_lr = 2.5e-4
+    (_, l_emit), emit_launches = _counted(kernels, lambda: fit_emitter_lens(
+        scene, em_target, 3, n_rays=n_em, belts=16, seed=1, origin=origin,
+        learning_rate=emit_lr, init_params=pert))
+    assert all(np.isfinite(l_emit)) and l_emit[-1] < l_emit[0], l_emit
+    assert emit_launches["sweep_select"] == 6, emit_launches
+    print(f"[l] fit_emitter_lens on the robot, {n_em} emitter rays, 3 SGD steps at "
+          f"{emit_lr} from a perturbed start: loss {l_emit}, launches {emit_launches}",
+          flush=True)
+    del es, ed, em_target
+
+    grid = scene_ortho_grid(512)
+    gs, gd = grid.rays_at(torch.arange(grid.n_rays, device=dev))
+    assert torch.equal(gs, start) and torch.equal(gd, direction)
+    with torch.no_grad():
+        img_grid = rd.render_lens_image(patches, scene.refractive_index, gs, gd,
+                                        scene.screen_plane)
+    assert torch.equal(img_grid, _render(scene))
+    big = scene_ortho_grid(4096)
+    big_idx = torch.arange(big.n_rays, device=dev)
+    host_args = ((0.0, 0.0, 0.0), (1.0, 0.0, 0.0), (0.0, 0.0, 1.0),
+                 scenes.ROBOT_BEAM_WIDTH, scenes.ROBOT_BEAM_WIDTH, 4096, 4096)
+
+    def _host_grid():
+        s_h, d_h = camera.ortho_ray_grid(*host_args)
+        return torch.as_tensor(s_h).to(dev), torch.as_tensor(d_h).to(dev)
+
+    big_dev, big_host = big.rays_at(big_idx), _host_grid()
+    assert all(torch.equal(a, b) for a, b in zip(big_dev, big_host))
+    del big_dev, big_host
+    grid_ms = {"rays_at": _time_ms(lambda: big.rays_at(big_idx), windows=5, inner=1),
+               "host": _time_ms(_host_grid, windows=3, inner=1, warmup=1)}
+    print(f"[l] scene_ortho_grid(512).rays_at: torch.equal to the scene's rays, render "
+          f"torch.equal to the host grid's image; at 4096^2 ({big.n_rays} rays) torch.equal "
+          f"to the host grid", flush=True)
+    print(f"[l] {card} | OrthoGrid.rays_at 4096^2 {grid_ms['rays_at']:.3f} ms vs host grid "
+          f"+ upload {grid_ms['host']:.3f} ms", flush=True)
+    del big_idx
+    torch.cuda.empty_cache()
+
+    (shade, depth, hit), normal_launches = _counted(kernels, lambda: rd.render_surface_normals(
+        patches, start, direction, light_dir=(1.0, 0.0, 0.0)))
+    plain = rd.render_surface_normals(patches, start, direction, (1.0, 0.0, 0.0),
+                                      backend="plain")
+    assert normal_launches["sweep_select"] == 1 and normal_launches["tables"] == 1, \
+        normal_launches
+    n_hits = int(hit.sum())
+    assert torch.isfinite(shade).all() and n_hits > 1000 and torch.equal(hit, plain[2])
+    torch.testing.assert_close(shade, plain[0], rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(depth, plain[1], rtol=1e-5, atol=1e-5)
+    print(f"[l] render_surface_normals {R} rays: {n_hits} hits, shade and depth vs the "
+          f"plain twin max |d| {float((shade - plain[0]).abs().max()):.3e}, "
+          f"{float((depth - plain[1]).abs().max()):.3e}; launches {normal_launches}",
+          flush=True)
+    del shade, depth, hit, plain
+
     # ---- i: another checkout against this one ------------------------------------
     if args.against:
         torch.cuda.empty_cache()
@@ -824,6 +1109,7 @@ def main(argv=None) -> int:
             "replaces": "cbtr_tpu/ops/pallas_sweep.py:634",
             "launches": main_launches["sweep_select"],
             "launches_per_step": main_launches["sweep_select"] / 3,
+            "launches_per_fit_step": fit_launches["sweep_select"] / 6,
             "max_abs_err": k1_cmp[2],
             "ms": k1_ms,
             "plain_ms": k1_plain_ms,
@@ -841,6 +1127,7 @@ def main(argv=None) -> int:
             "replaces": "cbtr_tpu/ops/pallas_sweep.py:1017",
             "launches": large_launches["winner"],
             "launches_per_step": large_launches["winner"] / 3,
+            "launches_per_fit_step": big_launches["winner"] / 3,
             "max_abs_err": k2_cmp[2],
             "ms": k2_ms,
             "plain_ms": k2_plain_ms,
@@ -856,6 +1143,7 @@ def main(argv=None) -> int:
             "replaces": "cbtr_tpu/ops/pallas_sweep.py:125",
             "launches": bench_launches["sweep_codes"],
             "launches_per_step": 0,
+            "launches_per_fit_step": fit_launches["sweep_codes"] / 6,
             "max_abs_err": max(r["max_err"] for r in k3_rows.values()),
             "ms": k3_rows["robot"]["tables"],
             "plain_ms": k3_rows["robot"]["plain"],
@@ -874,6 +1162,7 @@ def main(argv=None) -> int:
                         "Pallas kernel)",
             "launches": main_launches["tables"],
             "launches_per_step": main_launches["tables"] / 3,
+            "launches_per_fit_step": fit_launches["tables"] / 6,
             "max_abs_err": tables_err,
             "ms": tables_ms["robot"],
             "plain_ms": tables_plain_ms["robot"],
@@ -890,6 +1179,7 @@ def main(argv=None) -> int:
             "replaces": "benchmarks/vpu_peak.py:48",
             "launches": bench_launches["fma_chains"],
             "launches_per_step": 0,
+            "launches_per_fit_step": fit_launches["fma_chains"] / 6,
             "max_abs_err": k4_err,
             "ms": k4_ms[fp.N_BIG],
             "plain_ms": k4_plain_ms,

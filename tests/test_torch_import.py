@@ -31,6 +31,19 @@ import cbtr_tpu_torch.models.lens_model
 import cbtr_tpu_torch.models.scenes
 import cbtr_tpu_torch.convert
 import cbtr_tpu_torch.render.render
+import cbtr_tpu_torch.utils
+import cbtr_tpu_torch.utils.checkpoint
+import cbtr_tpu_torch.utils.profiling
+import cbtr_tpu_torch.utils.prng
+from cbtr_tpu_torch.render import (OrthoGrid, DeviceEmitter, sample_hemisphere,
+    angle_sweep_rays, pinhole_ray_grid, render_emitter_image,
+    render_emitter_image_device, render_surface_normals)
+from cbtr_tpu_torch.models import (fit_lens, fit_emitter_lens, emitter_rays,
+    make_opt_train_step, scene_ortho_grid)
+from cbtr_tpu_torch.utils import (save_params, load_params, save_patches,
+    load_patches, RateMeter, trace)
+from cbtr_tpu_torch.utils.checkpoint import latest_checkpoint
+from cbtr_tpu_torch.utils.prng import prng_key, fold_in, split, uniform
 assert shutil.which("nvcc") is None
 assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
 assert not any(m == "cbtr_tpu" or m.startswith("cbtr_tpu.") for m in sys.modules)
