@@ -101,15 +101,17 @@ def splat_bilinear(points2d, weights, extent, resolution: int):
 
 def render_lens_image(patches, refractive_index, start, direction, screen_plane,
                       extent: float = 4.0, resolution: int = 128,
-                      chunk_size: int = 0, weights=None, backend: str = "auto"):
+                      chunk_size: int = 0, weights=None, backend: str = "auto",
+                      intersect_fn=None):
     """Flagship forward model: collimated rays -> lens entry/exit refraction
     -> screen splat -> [res, res] irradiance image.
 
     weights: optional per-ray multiplier [...]; 0 removes a ray from the
-    image.  backend: see ops.intersect.intersect_rays."""
+    image.  backend: see ops.intersect.intersect_rays; intersect_fn: see
+    optics.lens.refract_rays."""
     out_s, out_d, alive, _, _ = trace_through_lens(
         patches, refractive_index, start, direction, chunk_size=chunk_size,
-        backend=backend,
+        backend=backend, intersect_fn=intersect_fn,
     )
     hit2d, on_screen = screen_hits(out_s, out_d, screen_plane)
     live = alive & on_screen

@@ -21,7 +21,12 @@ checks them:
   theirs: twice a train step;
 * the fit loop (`fit_lens`, `fit_emitter_lens`: SGD and Adam, checkpoints
   and resume) on K1 and K2, and the rays made on the device (DeviceEmitter,
-  OrthoGrid) with the renders that take them.
+  OrthoGrid) with the renders that take them;
+* mesh-vertex lens design (`models/design.py`: the patches rebuilt from the
+  vertices inside every step) on K1 and the table kernel;
+* the parallel layer (`parallel/`) on a one-rank NCCL group: the multihost
+  renders and steps, and the patch-sharded intersection, which sweeps
+  through K3, in the ('rays', 'patches') train step.
 
 Phases:
 
@@ -101,6 +106,28 @@ Phases:
      render to the host grid's image, at 4096^2 torch.equal to the host
      grid; render_surface_normals at 512^2 (1 K1 launch) against the plain
      twin; times of rays_at, the emitter renders and the 4096^2 grid
+  m  design at the configuration of benchmarks/design_lens.py's full run:
+     the sphere 15 x 7 at LENS_CENTER (107 vertices, 630 patches), 262,144
+     cone-lattice rays of 13 degrees, a 32^2 flat-top target scaled to the
+     initial flux; `patches_from_vertices` bit-equal between two calls (and
+     the design loss and image), against `build_from_trimesh` and the CPU
+     rebuild; loss and vertex gradient on the card against the CPU on 4096
+     rays; one design step's launches (K1 2, tables 2); `fit_design` with
+     stages [(5e-4, 8), (1e-4, 4)] (the best loss below the initial one) and
+     its ms a step
+  n  in a one-rank NCCL group (file:// store, 60 s timeout; a failure to
+     start it fails the run): render_multihost, render_multihost_ortho(512^2)
+     and render_multihost_emitter torch.equal to the single-process renders;
+     3 SGD steps of each make_multihost_train_step* (the loss falls, the first
+     gradient within phase 6's bar of the single-process one);
+     intersect_rays_patch_sharded on a 1 x 1 ('rays', 'patches') mesh at
+     262,144 x 450 and x 1800 (K3 and tables 1 launch each, never K1 or K2;
+     the rays whose winner differs from intersect_rays', agreement >= 0.999;
+     recompute rejects on 4096 rays <= 4; peak memory); K3 on a table padded
+     by pad_patches with cone rays from the origin; 3 SGD steps of the
+     ('rays', 'patches') train step through refract_rays(intersect_fn=) (K3
+     and tables 6 launches) and its fixed-lens time beside the K1 step's;
+     entry() and dryrun_multichip(1)
   i  with --against DIR (the root of another checkout, e.g. an earlier
      commit unpacked by `git archive`): that checkout against this one, each
      in fresh processes, in turns (DIR, this, this, DIR): K1, K2 and K3
@@ -407,6 +434,341 @@ def _bin_sorted_fraction(d, belts: int) -> float:
     patch = hemi.patch_starts[belt] + np.minimum(
         (turn / hemi.patch_widths[belt]).astype(np.int64), belt_patch_counts(belts)[belt] - 1)
     return float(np.mean(np.diff(patch) >= 0))
+
+
+def _cone_lattice_rays(n: int, max_angle_deg: float, device):
+    """benchmarks/design_lens.py::cone_lattice_rays: a deterministic point
+    source at the origin, stratified cos x golden-angle turn over a cap of
+    max_angle_deg around +x; (start, direction) [n,3] f32 on `device`."""
+    import numpy as np
+    import torch
+
+    cos_min = float(np.cos(np.deg2rad(max_angle_deg)))
+    i = np.arange(n)
+    cosi = 1.0 - (i + 0.5) / n * (1.0 - cos_min)
+    turn = (i * 2.399963229728653) % (2.0 * np.pi)
+    sini = np.sqrt(np.maximum(1.0 - cosi * cosi, 0.0))
+    d = np.stack([cosi, sini * np.cos(turn), sini * np.sin(turn)], -1)
+    d = (d / np.linalg.norm(d, axis=-1, keepdims=True)).astype(np.float32)
+    return (torch.zeros((n, 3), dtype=torch.float32, device=device),
+            torch.as_tensor(d, device=device))
+
+
+def _flat_top_target(resolution: int, extent: float, radius: float, sigma: float):
+    """benchmarks/design_lens.py::structured_target("flat"): a disk of the
+    given radius with a sigmoid edge of width sigma, [res, res] f32 NumPy."""
+    import numpy as np
+
+    c = (np.arange(resolution, dtype=np.float64) + 0.5) / resolution
+    xy = (c - 0.5) * 2.0 * extent
+    gx, gy = np.meshgrid(xy, xy, indexing="ij")
+    r = np.sqrt(gx * gx + gy * gy)
+    return (1.0 / (1.0 + np.exp((r - radius) / sigma))).astype(np.float32)
+
+
+def _design_phase(dev, card, kernels):
+    """Phase m: the design configuration of benchmarks/design_lens.py's full
+    run (DESIGN_r05.json): the sphere 15 x 7 at LENS_CENTER (107 vertices,
+    630 patches: K1), 262,144 cone-lattice rays of 13 degrees, a 32^2 image
+    of extent 4, a flat-top target (radius 1.2, sigma 0.15) scaled to the
+    initial lens's flux.  Returns a dict of what it measured."""
+    import torch
+
+    from cbtr_tpu_torch.bezier import build_from_trimesh
+    from cbtr_tpu_torch.harness import preprocess
+    from cbtr_tpu_torch.mesh.core import make_unit_sphere
+    from cbtr_tpu_torch.models import design, scenes
+
+    lamp = preprocess(make_unit_sphere(15, 7))
+    lamp.translate(scenes.LENS_CENTER)
+    lamp = preprocess(lamp)
+    topo, p0 = design.topology_from_mesh(lamp, device=dev)
+    topo_cpu, p_cpu = design.topology_from_mesh(lamp, device="cpu")
+    with torch.no_grad():
+        built = design.patches_from_vertices(p0, topo)
+        again = design.patches_from_vertices(p0, topo)
+        on_cpu = design.patches_from_vertices(p_cpu, topo_cpu)
+    host = build_from_trimesh(lamp, device=dev)
+    torch.cuda.synchronize()
+    assert (built.num_patches, p0.vertices.shape[0]) == (630, 107), built.num_patches
+    gaps = {}    # leaf -> max |d| / max |leaf| against the host build, the CPU rebuild
+    for name, leaf in built.leaves().items():
+        # the forward is reproducible on the card: the corner sums run in a
+        # fixed order (no atomics), so every table is bit-equal between calls
+        assert torch.equal(leaf, getattr(again, name)), name
+        if name == "neighbours":
+            assert torch.equal(leaf, host.neighbours) and torch.equal(leaf.cpu(), on_cpu.neighbours)
+            continue
+        scale = float(leaf.abs().max())
+        gaps[name] = (float((leaf - getattr(host, name)).abs().max()) / scale,
+                      float((leaf.cpu() - getattr(on_cpu, name)).abs().max()) / scale)
+    # Far from the origin the barycentric inverse is ill-conditioned (entries
+    # up to 1.5e4 on this lens): there the f32 rebuild and the host build
+    # differ by up to 2.3e-3 of a leaf's largest entry in the port and 2.0e-3
+    # in the JAX package (CPU), against 2e-5 absolute for the untranslated
+    # sphere of tests/test_torch_design.py.  A wrong build is off by O(1).
+    assert max(max(g) for g in gaps.values()) <= 5e-3, gaps
+
+    n_rays, res, extent = 262144, 32, 4.0
+    start, direction = _cone_lattice_rays(n_rays, 13.0, dev)
+    screen = torch.tensor([1.0, 0.0, 0.0, 10.0], dtype=torch.float32, device=dev)
+    with torch.no_grad():
+        _, img0 = design.design_loss(p0, topo, start, direction, screen,
+                                     torch.ones((res, res), device=dev), resolution=res,
+                                     extent=extent)
+        flat = _flat_top_target(res, extent, 1.2, 0.15)
+        target = torch.as_tensor(flat * (float(img0.sum()) / float(flat.sum())), device=dev)
+        loss_a, img_a = design.design_loss(p0, topo, start, direction, screen, target,
+                                           resolution=res, extent=extent)
+        loss_b, img_b = design.design_loss(p0, topo, start, direction, screen, target,
+                                           resolution=res, extent=extent)
+    assert torch.equal(img_a, img_b) and torch.equal(loss_a, loss_b), "design forward moved"
+
+    # the card against the port's CPU run on the first 4096 rays, at the bars
+    # of tests/test_torch_lens_model.py (loss 1e-4 relative, gradients 1e-3):
+    # sqrt and arccos round otherwise on the two devices (measured: loss
+    # 6.9e-6, vertex gradient 1.1e-4 of its max, index gradient 1.9e-5)
+    runs = []
+    for where in (dev, torch.device("cpu")):
+        topo_w, p_w = design.topology_from_mesh(lamp, device=where)
+        loss, _ = design.design_loss(p_w, topo_w, start[:4096].to(where),
+                                     direction[:4096].to(where), screen.to(where),
+                                     target.to(where), resolution=res, extent=extent)
+        loss.backward()
+        runs.append((loss.item(), p_w.vertices.grad.cpu(), p_w.refractive_index.grad.item()))
+    (l_card, g_card, n_card), (l_cpu, g_cpu, n_cpu) = runs
+    g_gap = float((g_card - g_cpu).abs().max()) / float(g_cpu.abs().max())
+    loss_gap, n_gap = abs(l_card - l_cpu) / abs(l_cpu), abs(n_card - n_cpu) / abs(n_cpu)
+    assert loss_gap <= 1e-4 and g_gap <= 1e-3 and n_gap <= 1e-3, (loss_gap, g_gap, n_gap)
+
+    # the design gradient twice at one iterate, all rays: the backward of the
+    # gathers (vertices[face2vertex], the recompute's rows) adds with atomics
+    repeat = []
+    for _ in range(2):
+        p0.zero_grad(set_to_none=True)
+        design.design_loss(p0, topo, start, direction, screen, target, resolution=res,
+                           extent=extent)[0].backward()
+        repeat.append((p0.vertices.grad.clone(), p0.refractive_index.grad.clone()))
+    torch.cuda.synchronize()
+    g_repeat = (float((repeat[0][0] - repeat[1][0]).abs().max()),
+                float(repeat[0][0].abs().max()),
+                float((repeat[0][1] - repeat[1][1]).abs()))
+    p0.zero_grad(set_to_none=True)
+
+    step = design.make_design_step(topo, screen, target, resolution=res, extent=extent)
+    opt = torch.optim.Adam(p0.parameters(), lr=5e-4)
+    _, step_launches = _counted(kernels, lambda: step(p0, opt, start, direction))
+    assert step_launches == {"sweep_select": 2, "winner": 0, "sweep_codes": 0,
+                             "fma_chains": 0, "tables": 2}, step_launches
+
+    stages = [(5e-4, 8), (1e-4, 4)]
+    n_steps = sum(n for _, n in stages)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    (best, _, losses), fit_launches = _counted(kernels, lambda: design.fit_design(
+        lamp, target, start, direction, screen, stages=stages, resolution=res,
+        extent=extent, device=dev))
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t) / n_steps * 1e3
+    assert fit_launches == {"sweep_select": 2 * n_steps, "winner": 0, "sweep_codes": 0,
+                            "fma_chains": 0, "tables": 2 * n_steps}, fit_launches
+    assert torch.isfinite(best.vertices).all() and min(losses) < losses[0], losses
+    print(f"[m] design: sphere 15 x 7 at LENS_CENTER ({p0.vertices.shape[0]} vertices, "
+          f"{built.num_patches} patches), {n_rays} cone-lattice rays (13 deg), {res}^2 "
+          f"flat-top target; patches_from_vertices bit-equal between two calls, and so are "
+          f"the design loss and image; (max |d| / max |leaf|) against build_from_trimesh "
+          f"and against the CPU rebuild {gaps}; card vs CPU on 4096 rays: loss {l_card!r} vs {l_cpu!r} (gap "
+          f"{loss_gap:.3e}), max |d grad v| / max |grad v| {g_gap:.3e}, index gradient gap "
+          f"{n_gap:.3e}; the gradient twice at one iterate on the card: max |d grad v| "
+          f"{g_repeat[0]:.3e} of max |grad v| {g_repeat[1]:.4e}, |d grad n| {g_repeat[2]:.3e}; "
+          f"one design step launches {step_launches}; fit_design {stages}: "
+          f"losses {[round(x, 6) for x in losses]}, best {min(losses):.6f} at step "
+          f"{losses.index(min(losses))} (initial {losses[0]:.6f}), launches {fit_launches}",
+          flush=True)
+    print(f"[m] {card} | design step {n_rays} rays x {built.num_patches} patches (Adam, "
+          f"patches rebuilt from the vertices, host clock around fit_design): "
+          f"{step_ms:.3f} ms", flush=True)
+    return {"step_ms": step_ms, "launches": fit_launches, "steps": n_steps,
+            "cone": (start, direction)}
+
+
+def _parallel_phase(dev, card, kernels, scene, refined, em, cone):
+    """Phase n, inside a one-rank NCCL group: the multihost renders and steps
+    against the single-process ones, the patch-sharded intersection (K3)
+    against K1 and K2, the ('rays', 'patches') train step, entry and
+    dryrun_multichip.  Returns a dict of what it measured."""
+    import numpy as np
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from cbtr_tpu_torch import entry
+    from cbtr_tpu_torch.models import lens_model, scene_ortho_grid
+    from cbtr_tpu_torch.ops import cuda_codes as cc
+    from cbtr_tpu_torch.ops import intersect as ix
+    from cbtr_tpu_torch.parallel import multihost as mh
+    from cbtr_tpu_torch.parallel import sharding
+    from cbtr_tpu_torch.parallel.patch_parallel import intersect_rays_patch_sharded, pad_patches
+    from cbtr_tpu_torch.render import render as rd
+
+    patches, start, direction = scene.patches, scene.start, scene.direction
+    screen, n_refr, R = scene.screen_plane, scene.refractive_index, scene.start.shape[0]
+    mesh = mh.multihost_mesh()
+    assert mesh is not None and mesh.size() == 1 and mesh.device_type == dev.type, mesh
+
+    # renders: a one-rank all-reduce is the identity, the weights of
+    # process_ray_shard are all 1 and the grid's rays are the scene's
+    with torch.no_grad():
+        got = {"uploaded": mh.render_multihost(mesh, patches, n_refr, start, direction, screen),
+               "ortho": mh.render_multihost_ortho(mesh, patches, n_refr, scene_ortho_grid(512),
+                                                  screen),
+               "emitter": mh.render_multihost_emitter(mesh, patches, n_refr, em, screen)}
+        ref = _render(scene)
+        ref_e = rd.render_emitter_image_device(patches, n_refr, em, screen)
+    wants = {"uploaded": ref, "ortho": ref, "emitter": ref_e}
+    gaps = {k: float((got[k] - wants[k]).abs().max()) for k in got}
+    assert all(torch.equal(got[k], wants[k]) for k in got), gaps
+
+    # three SGD steps of each multihost step; the first gradient against the
+    # single-process gradient at the same lens, within phase 6's bar
+    e_idx = torch.arange(em.n_rays, device=dev)
+    es, ed, ew = em.rays_at(e_idx)
+    zero = torch.zeros((128, 128), dtype=torch.float32, device=dev)
+    rng = np.random.default_rng(0)
+    bump = torch.as_tensor(rng.normal(scale=2e-3, size=tuple(patches.control_points.shape))
+                           .astype(np.float32), device=dev)
+
+    def fresh():
+        return lens_model.params_from_scene(scene)
+
+    def perturbed():
+        p = fresh()
+        with torch.no_grad():
+            p.control_points += bump
+            p.refractive_index += 0.01
+        return p
+
+    variants = {
+        "uploaded": (lambda: mh.make_multihost_train_step(mesh, screen, zero,
+                                                          learning_rate=2.5e-7),
+                     lambda st, p: st(p, start, direction) + (None,),
+                     fresh, (start, direction, None), zero),
+        "ortho": (lambda: mh.make_multihost_train_step_ortho(mesh, screen, zero,
+                                                             scene_ortho_grid(512),
+                                                             learning_rate=2.5e-7),
+                  lambda st, p: st(p), fresh, (start, direction, None), zero),
+        # phase l's emitter fit took 2.5e-4; on the device emitter's own image
+        # its third step overshot (0.1085, 0.0949, 0.1552)
+        "emitter": (lambda: mh.make_multihost_train_step_emitter(mesh, screen, ref_e, em,
+                                                                 learning_rate=1e-4),
+                    lambda st, p: st(p), perturbed, (es, ed, ew), ref_e),
+    }
+    steps_out = {}
+    for name, (make, call, init, (s, d, w), target) in variants.items():
+        p_ref = init()
+        lens_model.lens_loss(p_ref, s, d, screen, target, ray_weights=w).backward()
+        g_ref = p_ref.control_points.grad
+        st, p = make(), init()
+        losses, gap = [], None
+        for _ in range(3):
+            p, loss, _ = call(st, p)
+            if gap is None:
+                gap = float((p.control_points.grad - g_ref).abs().max())
+            losses.append(float(loss))
+        g_max = float(g_ref.abs().max())
+        assert np.isfinite(losses).all() and losses[2] < losses[0], (name, losses)
+        assert gap <= 1e-5 * g_max, (name, gap, g_max)
+        steps_out[name] = (losses, gap, g_max)
+
+    # the patch-sharded intersection on a 1 x 1 ('rays', 'patches') mesh
+    mesh2 = init_device_mesh(dev.type, (1, 1), mesh_dim_names=("rays", "patches"))
+    rows = {}
+    for name, sc in (("robot", scene), ("refined", refined)):
+        p, s, d = sc.patches, sc.start, sc.direction
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        with torch.no_grad():
+            hit, launches = _counted(kernels, lambda: intersect_rays_patch_sharded(
+                p, s, d, mesh2, ray_axis="rays"))
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated(dev)
+        assert launches == {"sweep_select": 0, "winner": 0, "sweep_codes": 1,
+                            "fma_chains": 0, "tables": 1}, (name, launches)
+        with torch.no_grad():
+            want, direct = _counted(kernels, lambda: ix.intersect_rays(p, s, d))
+        ok, ok_w = hit.what == ix.WHAT_INTERSECT, want.what == ix.WHAT_INTERSECT
+        differ = int(((ok != ok_w) | (ok & ok_w & (hit.patch != want.patch))).sum())
+        _, rejects = ix.recompute_winner(p, s[:4096], d[:4096], ok[:4096], hit.patch[:4096],
+                                         with_check=True)
+        assert 1.0 - differ / R >= 0.999 and rejects <= 4, (name, differ, rejects)
+        kernel = "K1" if direct["sweep_select"] else "K2"
+        ms = _time_ms(lambda: intersect_rays_patch_sharded(p, s, d, mesh2, ray_axis="rays"),
+                      windows=3, inner=1)
+        rows[name] = dict(differ=differ, kernel=kernel, rejects=rejects, peak=peak, ms=ms,
+                          hits=int(ok.sum()))
+        print(f"[n] patch-sharded intersect on a 1 x 1 ('rays', 'patches') mesh, {R} x "
+              f"{p.num_patches} ({name}): launches {launches}; {differ} of {R} rays with "
+              f"another winner than intersect_rays ({kernel}), recompute rejects on 4096 "
+              f"rays {rejects}; peak memory {peak / 2**30:.3f} GiB", flush=True)
+        del hit, want
+    # padding rows: no candidate for rays from the origin, K3 bit-equal to
+    # its twin on the padded table
+    padded = pad_patches(patches, 4)
+    s0, d0 = cone[0][:65536], cone[1][:65536]
+    code, dist_ = cc.sweep_codes_cuda(padded, s0, d0)
+    code_r, dist_r = cc.sweep_codes_reference(padded, s0, d0)
+    torch.cuda.synchronize()
+    inter = (code_r & 7) == ix.WHAT_INTERSECT
+    assert padded.num_patches == 452 and torch.equal(code, code_r)
+    assert torch.equal(dist_[inter], dist_r[inter]) and int(inter.sum()) > 10000
+    assert bool(((code[:, patches.num_patches:] & 7) == ix.WHAT_NONE).all())
+    print(f"[n] K3 on the robot padded to 452 rows, 65,536 cone rays from the origin: codes "
+          f"and cIntersect distances bit-equal to the twin, no candidate on a padding row",
+          flush=True)
+    del code, dist_, code_r, dist_r, inter
+
+    # the ('rays', 'patches') train step through refract_rays(intersect_fn=)
+    step = sharding.make_sharded_train_step(mesh2, screen, zero, resolution=128,
+                                            learning_rate=2.5e-7, patch_axis="patches")
+    params, pp_losses = lens_model.params_from_scene(scene), []
+
+    def three_steps():
+        nonlocal params
+        for _ in range(3):
+            params, loss = step(params, start, direction)
+            pp_losses.append(float(loss))
+
+    _, pp_launches = _counted(kernels, three_steps)
+    assert pp_launches == {"sweep_select": 0, "winner": 0, "sweep_codes": 6,
+                           "fma_chains": 0, "tables": 6}, pp_launches
+    assert np.isfinite(pp_losses).all() and pp_losses[2] < pp_losses[0], pp_losses
+    fixed = sharding.make_sharded_train_step(mesh2, screen, zero, resolution=128,
+                                             learning_rate=0.0, patch_axis="patches")
+    p_fixed = lens_model.params_from_scene(scene)
+    k1_step_ms = _fixed_step_ms(lens_model, scene)
+    pp_step_ms = _time_ms(lambda: fixed(p_fixed, start, direction), windows=5, inner=1)
+    k1_again_ms = _fixed_step_ms(lens_model, scene)
+
+    fn, args = entry.entry(device=dev)
+    with torch.no_grad():
+        e_img = fn(*args)
+    dry = entry.dryrun_multichip(1, device=dev)
+    torch.cuda.synchronize()
+    assert e_img.shape == (32, 32) and torch.isfinite(e_img).all() and float(e_img.sum()) > 10
+    assert np.isfinite(dry)
+    print(f"[n] one-rank NCCL group: render_multihost, render_multihost_ortho(512^2) and "
+          f"render_multihost_emitter torch.equal to the single-process renders (max |d| "
+          f"{gaps}); 3 SGD steps each (loss, first-step max |d grad cp| vs "
+          f"make_train_step's, max |grad cp|): {steps_out}; ('rays', 'patches') step "
+          f"through refract_rays(intersect_fn=): loss {pp_losses}, launches {pp_launches}; "
+          f"entry() image sum {float(e_img.sum()):.3f}; dryrun_multichip(1) loss {dry!r}",
+          flush=True)
+    print(f"[n] {card} | patch-sharded intersect {R} x 450 {rows['robot']['ms']:.3f} ms, x "
+          f"1800 {rows['refined']['ms']:.3f} ms; fixed-lens train step at the headline: "
+          f"patch-sharded (K3) {pp_step_ms:.3f} ms, on K1 {k1_step_ms:.3f} and "
+          f"{k1_again_ms:.3f} ms (before and after)", flush=True)
+    return {"rows": rows, "launches": pp_launches, "pp_step_ms": pp_step_ms,
+            "k1_step_ms": (k1_step_ms, k1_again_ms)}
 
 
 def main(argv=None) -> int:
@@ -1087,6 +1449,31 @@ def main(argv=None) -> int:
           flush=True)
     del shade, depth, hit, plain
 
+    # ---- m: mesh-vertex lens design ------------------------------------------------
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    design_out = _design_phase(dev, card, kernels)
+    print(f"[m] took {time.perf_counter() - t:.1f} s", flush=True)
+
+    # ---- n: the parallel layer on a one-rank NCCL group ----------------------------
+    import datetime
+
+    import torch.distributed as dist
+
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{os.path.join(tmp, 'store')}",
+                                world_size=1, rank=0,
+                                timeout=datetime.timedelta(seconds=60))
+        try:
+            par_out = _parallel_phase(dev, card, kernels, scene, refined, em,
+                                      design_out["cone"])
+        finally:
+            dist.destroy_process_group()
+    print(f"[n] took {time.perf_counter() - t:.1f} s", flush=True)
+    del design_out["cone"]
+
     # ---- i: another checkout against this one ------------------------------------
     if args.against:
         torch.cuda.empty_cache()
@@ -1110,6 +1497,8 @@ def main(argv=None) -> int:
             "launches": main_launches["sweep_select"],
             "launches_per_step": main_launches["sweep_select"] / 3,
             "launches_per_fit_step": fit_launches["sweep_select"] / 6,
+            "launches_per_design_step":
+                design_out["launches"]["sweep_select"] / design_out["steps"],
             "max_abs_err": k1_cmp[2],
             "ms": k1_ms,
             "plain_ms": k1_plain_ms,
@@ -1141,9 +1530,12 @@ def main(argv=None) -> int:
             "route": "cuda",
             "source": "cbtr_tpu_torch/csrc/sweep_codes.cu",
             "replaces": "cbtr_tpu/ops/pallas_sweep.py:125",
-            "launches": bench_launches["sweep_codes"],
-            "launches_per_step": 0,
+            "launches": par_out["launches"]["sweep_codes"],
+            "launches_per_step": par_out["launches"]["sweep_codes"] / 3,
             "launches_per_fit_step": fit_launches["sweep_codes"] / 6,
+            "launches_in_bench": bench_launches["sweep_codes"],
+            "patch_sharded_step_ms": par_out["pp_step_ms"],
+            "patch_sharded_intersect_ms": {k: v["ms"] for k, v in par_out["rows"].items()},
             "max_abs_err": max(r["max_err"] for r in k3_rows.values()),
             "ms": k3_rows["robot"]["tables"],
             "plain_ms": k3_rows["robot"]["plain"],
@@ -1163,6 +1555,9 @@ def main(argv=None) -> int:
             "launches": main_launches["tables"],
             "launches_per_step": main_launches["tables"] / 3,
             "launches_per_fit_step": fit_launches["tables"] / 6,
+            "launches_per_design_step":
+                design_out["launches"]["tables"] / design_out["steps"],
+            "launches_per_patch_sharded_step": par_out["launches"]["tables"] / 3,
             "max_abs_err": tables_err,
             "ms": tables_ms["robot"],
             "plain_ms": tables_plain_ms["robot"],

@@ -35,6 +35,13 @@ import cbtr_tpu_torch.utils
 import cbtr_tpu_torch.utils.checkpoint
 import cbtr_tpu_torch.utils.profiling
 import cbtr_tpu_torch.utils.prng
+import cbtr_tpu_torch.models.design
+import cbtr_tpu_torch.parallel
+import cbtr_tpu_torch.parallel.sharding
+import cbtr_tpu_torch.parallel.patch_parallel
+import cbtr_tpu_torch.parallel.multihost
+import cbtr_tpu_torch.entry
+import torch.distributed as dist
 from cbtr_tpu_torch.render import (OrthoGrid, DeviceEmitter, sample_hemisphere,
     angle_sweep_rays, pinhole_ray_grid, render_emitter_image,
     render_emitter_image_device, render_surface_normals)
@@ -51,6 +58,7 @@ assert cs._libraries == {}       # no kernel library built or loaded
 assert cs.sweep_select.launches == 0 and cw.sweep_winner.launches == 0
 assert cc.sweep_codes_cuda.launches == 0 and fp.fma_chains.launches == 0
 assert ct.build_tables.launches == 0
+assert not dist.is_initialized()  # importing the parallel layer starts no group
 print("IMPORT_OK")
 """
 
