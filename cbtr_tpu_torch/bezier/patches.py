@@ -69,6 +69,11 @@ class BezierPatches:
     def detach(self) -> "BezierPatches":
         return self.map(torch.Tensor.detach)
 
+    def row(self, idx) -> "BezierPatches":
+        """Gather per-patch rows: every leaf indexed by `idx`, an integer
+        tensor of any shape (leading shape idx.shape)."""
+        return self.map(lambda leaf: leaf[idx])
+
     def packed_f32(self) -> torch.Tensor:
         """All float leaves flattened into one row-major [P, 60] table.
 

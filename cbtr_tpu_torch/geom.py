@@ -13,7 +13,8 @@ than reduced with ``torch.sum``: the CUDA sweep kernel evaluates the same
 expressions in the same order, which keeps the kernel and its plain twin
 bit-identical on the card.
 
-The two host-side lattice helpers at the bottom are NumPy.
+The host-side helpers (the Ritter bounding sphere, the subdivision lattice
+and `divide_triangle_np`) are NumPy.
 """
 from __future__ import annotations
 
@@ -75,6 +76,20 @@ def vertex_normal(v0, v1, v2):
     return cross(v1 - v0, v2 - v0)
 
 
+def perimeter(tri):
+    """Sum of side lengths (3dGeomUtil.h:43-45)."""
+    return (
+        norm(tri[..., 0, :] - tri[..., 1, :])
+        + norm(tri[..., 1, :] - tri[..., 2, :])
+        + norm(tri[..., 2, :] - tri[..., 0, :])
+    )
+
+
+def bary_to_cart(v0, v1, v2, b):
+    """Barycentric -> cartesian, b=[...,3] (3dGeomUtil.h:49-67)."""
+    return v0 * b[..., 0:1] + v1 * b[..., 1:2] + v2 * b[..., 2:3]
+
+
 def inv3x3(m):
     """Closed-form adjugate inverse of [..., 3, 3] (solve3x3.cpp lesson)."""
     a, b, c = m[..., 0, 0], m[..., 0, 1], m[..., 0, 2]
@@ -119,6 +134,44 @@ def a_perpendicular(v):
     return torch.stack([torch.zeros_like(out_y), out_y, out_z], dim=-1)
 
 
+def altitude(common1, common2, independent):
+    """Altitude vector of `independent` over side (common1, common2)
+    (3dGeomUtil.h:125-130)."""
+    common_v = common2 - common1
+    indep_v = independent - common1
+    foot = safe_div(dot(common_v, indep_v), dot(common_v, common_v))
+    return indep_v - common_v * foot[..., None]
+
+
+def to_which_side(start, end):
+    """Which side a barycentric segment start->end (start inside) exits.
+
+    Returns 0/1/2 for sides (300-030), (030-003), (003-300); 3 if none
+    (3dGeomUtil.h:137-164).  Branch-free: evaluates all three side tests and
+    selects the last passing one, mirroring the reference's sequential
+    overwrites of `result`.
+    """
+    eps = CFG.general_epsilon
+
+    def side_test(s0, s1, e0, e1):
+        denom = s0 - e0 + s1 - e1
+        ok_d = denom.abs() > eps
+        ratio = safe_div((s0 - 1.0) * e1 - s1 * (e0 - 1.0), denom)
+        direction = safe_div(s0 + s1 - 1.0, denom)
+        return ok_d & (ratio > -eps) & (ratio < 1.0 + eps) & (direction > 0.0)
+
+    s0, s1, s2 = start[..., 0], start[..., 1], start[..., 2]
+    e0, e1, e2 = end[..., 0], end[..., 1], end[..., 2]
+    hit0 = side_test(s0, s1, e0, e1)
+    hit1 = side_test(s1, s2, e1, e2)
+    hit2 = side_test(s2, s0, e2, e0)
+    out = torch.full(hit0.shape, 3, dtype=torch.int32, device=hit0.device)
+    out = torch.where(hit0, 0, out)
+    out = torch.where(hit1, 1, out)
+    out = torch.where(hit2, 2, out)
+    return out.to(torch.int32)
+
+
 # ---------------------------------------------------------------------------
 # Plane (3dGeomUtil.h:209-334); packed [..., 4] = (unit normal, constant)
 # ---------------------------------------------------------------------------
@@ -150,10 +203,20 @@ def plane_from_3points(p0, p1, p2):
     return make_plane(n, dot(n, p0))
 
 
+def plane_from_triangle(tri):
+    return plane_from_3points(tri[..., 0, :], tri[..., 1, :], tri[..., 2, :])
+
+
 def plane_from_1vector_2points(direction, p0, p1):
     """(3dGeomUtil.h:252-257)."""
     n = safe_normalize(cross(direction, p1 - p0))
     return make_plane(n, dot(n, p0))
+
+
+def plane_from_2vectors_1point(d0, d1, p):
+    """(3dGeomUtil.h:260-265)."""
+    n = safe_normalize(cross(d0, d1))
+    return make_plane(n, dot(n, p))
 
 
 def intersect_3planes(plane0, plane1, plane2):
@@ -185,6 +248,12 @@ def plane_ray_intersect(plane, start, direction):
     return valid, point, cos_incidence, distance
 
 
+def plane_project(plane, point):
+    """Orthogonal projection of point onto plane (3dGeomUtil.h:303)."""
+    n = plane_normal(plane)
+    return point - n * (dot(point, n) - plane_constant(plane))[..., None]
+
+
 def plane_distance(plane, point):
     """Signed distance, >0 on the normal side (3dGeomUtil.h:307)."""
     return dot(point, plane_normal(plane)) - plane_constant(plane)
@@ -195,6 +264,83 @@ def plane_make_distance_positive(plane, point):
     (3dGeomUtil.h:310-317)."""
     flip = plane_distance(plane, point) < 0.0
     return torch.where(flip[..., None], -plane, plane)
+
+
+# ---------------------------------------------------------------------------
+# Ray helpers (3dGeomUtil.h:168-206)
+# ---------------------------------------------------------------------------
+
+
+def ray_perpendicular_to(start, direction, point):
+    """Component of (point-start) perpendicular to the ray
+    (3dGeomUtil.h:182-184)."""
+    rel = point - start
+    return rel - dot(rel, direction)[..., None] * direction
+
+
+def ray_point_distance(start, direction, point):
+    return norm(ray_perpendicular_to(start, direction, point))
+
+
+def ray_point_distance2(start, direction, point):
+    p = ray_perpendicular_to(start, direction, point)
+    return dot(p, p)
+
+
+def ray_average_error_squared(start, direction, points):
+    """Mean squared distance of a point set [..., N, 3] from the ray line
+    (3dGeomUtil.h:199-205); 0 for an empty set."""
+    if points.shape[-2] == 0:
+        return torch.zeros(points.shape[:-2], dtype=points.dtype, device=points.device)
+    d2 = ray_point_distance2(start[..., None, :], direction[..., None, :], points)
+    return d2.mean(dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# Spherical (3dGeomUtil.h:337-348)
+# ---------------------------------------------------------------------------
+
+
+def spherical_from_cartesian(p):
+    """Returns (r, azimuth, inclination)."""
+    r = norm(p)
+    inclination = torch.arccos(safe_div(p[..., 2], r).clamp(-1.0, 1.0))
+    azimuth = torch.atan2(p[..., 1], p[..., 0])
+    return r, azimuth, inclination
+
+
+# ---------------------------------------------------------------------------
+# Bounding sphere (Ritter): the reference declares Sphere::doesIntersect but
+# never defines it (3dGeomUtil.h:351-362); this is the cull it planned.
+# ---------------------------------------------------------------------------
+
+
+def ritter_bounding_sphere(points_np: np.ndarray):
+    """Host-side Ritter approximate bounding sphere over an [N,3] point set:
+    (center [3] f32, radius f32)."""
+    pts = np.asarray(points_np, dtype=np.float32).reshape(-1, 3)
+    x = pts[0]
+    y = pts[np.argmax(np.sum((pts - x) ** 2, axis=1))]
+    z = pts[np.argmax(np.sum((pts - y) ** 2, axis=1))]
+    center = (y + z) / 2.0
+    radius = float(np.linalg.norm(y - z) / 2.0)
+    for p in pts:
+        d = float(np.linalg.norm(p - center))
+        if d > radius:
+            new_r = (radius + d) / 2.0
+            center = center + (p - center) * ((d - new_r) / d)
+            radius = new_r
+    return center.astype(np.float32), np.float32(radius)
+
+
+def ray_sphere_hit(start, direction, center, radius):
+    """Ray (half-line) vs sphere test for the bounding-sphere cull."""
+    rel = center - start
+    t = dot(rel, direction)
+    d2 = dot(rel, rel) - t * t
+    r2 = radius * radius
+    # hit if closest approach within radius and not entirely behind the origin
+    return (d2 <= r2) & ((t >= 0.0) | (dot(rel, rel) <= r2))
 
 
 # ---------------------------------------------------------------------------
@@ -233,3 +379,14 @@ def subdivision_lattice(divisor: int) -> np.ndarray:
             k = d - i - j
             pts.append((i / d, j / d, k / d))
     return np.asarray(pts, dtype=np.float32)
+
+
+def divide_triangle_np(tri: np.ndarray, divisor: int) -> np.ndarray:
+    """util::divide for a cartesian triangle, host-side.
+
+    tri: [3,3] -> [divisor**2, 3, 3] sub-triangles, same emission set as the
+    reference collector (3dGeomUtil.h:98-122, used by Mesh::splitTriangles).
+    """
+    tri = np.asarray(tri, dtype=np.float32)
+    bary = subdivision_barycentrics(divisor)  # [T,3,3]
+    return np.einsum("tcb,bx->tcx", bary, tri).astype(np.float32)

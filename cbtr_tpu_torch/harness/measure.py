@@ -1,10 +1,10 @@
 """The canonical mesh preprocessing sequence and the accuracy harness.
 
-Counterpart of cbtr_tpu/harness/measure.py.  `preprocess` is its NumPy
-branch only: every reference driver repeats weld + orient + topology +
-vertex averages (e.g. reference/test.cpp:261-264) before building patches.
-The JAX package's native C++ runtime agrees with this NumPy path
-(tests/test_native.py); the port has no native runtime yet.
+Counterpart of cbtr_tpu/harness/measure.py.  `preprocess` is the init
+sequence every reference driver repeats before building patches: weld +
+orient + topology + vertex averages (e.g. reference/test.cpp:261-264), on
+the native C++ runtime (`cbtr_tpu_torch.native`) by default, as in the JAX
+package, so both packages build their lenses from the same mesh.
 
 `measure_approximation` re-creates measureApproximation
 (reference/test.cpp:429-460): tessellate the Bezier surface built over an
@@ -15,15 +15,45 @@ spherical (azimuth, inclination).  The reference's published table
 """
 from __future__ import annotations
 
+import os
+from typing import Optional
+
 import numpy as np
 
+from .. import native
 from ..bezier import build_from_trimesh, split_thick_patches, tessellate_to_numpy
 from ..mesh.core import TriMesh, make_ellipsoid
 
 
-def preprocess(mesh: TriMesh) -> TriMesh:
+def preprocess(mesh: TriMesh, use_native: Optional[bool] = None) -> TriMesh:
     """Weld vertices, orient normals outwards, build neighbour tables and
-    vertex-average normals, in place; returns the mesh."""
+    vertex-average normals, in place; returns the mesh.
+
+    Runs on the native (C++) runtime unless CBTR_NATIVE=0 or the runtime is
+    unavailable (no g++), as the JAX package's `preprocess` does; the NumPy
+    path (`use_native=False` forces it) stays the behavioural oracle.  An
+    open mesh raises ValueError on both paths.
+    """
+    if use_native is None:
+        use_native = (
+            os.environ.get("CBTR_NATIVE", "") != "0" and native.available()
+        )
+    if use_native:
+        tris, fellow, starts, corner_avg = native.preprocess(mesh.tris)
+        mesh.tris = tris
+        mesh.fellow_triangles = fellow
+        mesh.fellow_common_side_starts = starts
+        mesh.corner_average_normals = corner_avg
+        # the per-vertex view (the visualizers read it): welded corner
+        # instances are bit-identical, so exact row dedup gives the vertex
+        # table, and each vertex's normal is any of its instances' normal
+        uniq, first, inverse = np.unique(
+            tris.reshape(-1, 3), axis=0, return_index=True, return_inverse=True
+        )
+        mesh.vertices = uniq.astype(np.float32)
+        mesh.face2vertex = inverse.reshape(-1, 3).astype(np.int32)
+        mesh.vertex_average_normals = corner_avg.reshape(-1, 3)[first]
+        return mesh
     mesh.standardize_vertices()
     mesh.standardize_normals()
     return mesh

@@ -8,7 +8,9 @@ bezierMesh.cpp:206-227, bezierLens.cpp:4-34) in float64 with scalar control
 flow, used as
 
 * the CPU baseline `cbtr_tpu_torch.bench` times `vs_baseline` against, and
-* an oracle that shares no code with the port's tensor path.
+* an oracle that shares no code with the port's tensor path
+  (`FastReferenceTracer`, the same arithmetic with the patch loop
+  vectorized, carries the image-level parity check).
 
 It reads the port's `BezierPatches` (tensors on any device) as float64
 NumPy arrays, and gives the JAX package's tracer's outputs on the same rays
@@ -197,3 +199,216 @@ class ReferenceTracer:
         if status != expected:
             return start, direction, R_NONE
         return hit["point"], d, status
+
+
+class FastReferenceTracer(ReferenceTracer):
+    """Patch-vectorized variant of the oracle (NumPy f64, masks instead of
+    the per-patch early-outs; still a Python loop over rays with real
+    branches for the retry/refraction control flow).
+
+    Exists because image-level parity (BASELINE config 1: 128x128 = 16384
+    rays through two refractions) needs ~50k oracle intersections, and the
+    scalar loop is far slower.  `tests/test_torch_image_parity.py` holds
+    this class against the scalar `ReferenceTracer` on a ray sample, so the
+    scalar tracer remains the ground truth.
+    """
+
+    def _candidates_all(self, start, direction, limit_domain):
+        """(what [P], dist [P]) for one ray against every patch — the same
+        arithmetic as ReferenceTracer.intersect_patch with masks."""
+        P = self.cp.shape[0]
+        n = self.underlying[:, :3]          # [P,3]
+        c = self.underlying[:, 3]           # [P]
+        cos_inc = n @ direction
+        dead = np.abs(cos_inc) < CFG.ray_plane_intersection_epsilon
+        cos_safe = np.where(dead, 1.0, cos_inc)
+        dist0 = (c - n @ start) / cos_safe
+        h_in, h_out = self.heights[:, 0], self.heights[:, 1]
+        valid = (~dead) & (dist0 > 0.0)
+        valid &= (np.abs(dist0) > -h_in) & (np.abs(dist0) > h_out)
+
+        point0 = start[None, :] + dist0[:, None] * direction[None, :]
+        bary0 = np.einsum("pij,pj->pi", self.bary_inv, point0)
+        if limit_domain:
+            valid &= ((bary0 >= 0.0) & (bary0 <= 1.0)).all(axis=1)
+
+        d_in, d_out = h_in / cos_safe, h_out / cos_safe
+        going = cos_inc > 0
+        closer = dist0 + np.where(going, d_in, d_out)
+        further = dist0 + np.where(going, d_out, d_in)
+
+        def surf_diff(t):
+            p = start[None, :] + t[:, None] * direction[None, :]
+            pd = np.einsum("pi,pi->p", p, n) - c
+            proj = p - n * pd[:, None]
+            b = np.einsum("pij,pj->pi", self.bary_inv, proj)
+            w = _COEF[None, :] * np.prod(
+                np.power(b[:, None, :], _POWS[None, :, :]), axis=2
+            )
+            surf = np.einsum("pk,pki->pi", w, self.cp)
+            sd = np.einsum("pi,pi->p", surf, n) - c
+            return np.abs(pd) - np.abs(sd)
+
+        diff_c, diff_f = surf_diff(closer), surf_diff(further)
+        denom = diff_c - diff_f
+        small = np.abs(denom) < CFG.intersection_estimation_epsilon
+        denom_safe = np.where(small, 1.0, denom)
+        middle = np.where(
+            small,
+            (closer + further) / 2.0,
+            (diff_c * further - diff_f * closer) / denom_safe,
+        )
+        if CFG.clamp_secant_estimate:
+            middle = np.clip(
+                middle, np.minimum(closer, further), np.maximum(closer, further)
+            )
+
+        proj_dir = n.copy()
+        distance = middle
+        surf_pt = np.zeros((P, 3))
+        normal = np.zeros((P, 3))
+        for _ in range(CFG.root_search_iterations):
+            distance = middle
+            p = start[None, :] + middle[:, None] * direction[None, :]
+            dd = np.einsum("pi,pi->p", proj_dir, n)
+            t = np.where(
+                np.abs(dd) > 1e-12, (c - np.einsum("pi,pi->p", p, n)) /
+                np.where(np.abs(dd) > 1e-12, dd, 1.0), 0.0
+            )
+            plane_pt = p + t[:, None] * proj_dir
+            bary = np.einsum("pij,pj->pi", self.bary_inv, plane_pt)
+            # quadratic normal (vectorized _normal)
+            b0, b1, b2 = bary[:, 0], bary[:, 1], bary[:, 2]
+            cp = self.cp
+            c0 = (cp[:, 0] * (b0 * b0)[:, None] + cp[:, 7] * (b2 * b2)[:, None]
+                  + cp[:, 4] * (b1 * b1)[:, None]
+                  + 2.0 * (cp[:, 8] * (b0 * b2)[:, None]
+                           + cp[:, 3] * (b0 * b1)[:, None]
+                           + cp[:, 9] * (b2 * b1)[:, None]))
+            c1 = (cp[:, 1] * (b1 * b1)[:, None] + cp[:, 6] * (b2 * b2)[:, None]
+                  + cp[:, 3] * (b0 * b0)[:, None]
+                  + 2.0 * (cp[:, 9] * (b0 * b2)[:, None]
+                           + cp[:, 4] * (b0 * b1)[:, None]
+                           + cp[:, 5] * (b1 * b2)[:, None]))
+            c2 = (cp[:, 2] * (b2 * b2)[:, None] + cp[:, 8] * (b0 * b0)[:, None]
+                  + cp[:, 5] * (b1 * b1)[:, None]
+                  + 2.0 * (cp[:, 7] * (b0 * b2)[:, None]
+                           + cp[:, 6] * (b1 * b2)[:, None]
+                           + cp[:, 9] * (b0 * b1)[:, None]))
+            ca = c0 - c2
+            cb = (self.deriv_b[:, 0:1] * c0 + self.deriv_b[:, 1:2] * c1
+                  + self.deriv_b[:, 2:3] * c2)
+            nrm = np.cross(ca, cb)
+            ln = np.linalg.norm(nrm, axis=1)
+            normal = nrm / np.where(ln > 0, ln, 1.0)[:, None]
+            w = _COEF[None, :] * np.prod(
+                np.power(bary[:, None, :], _POWS[None, :, :]), axis=2
+            )
+            surf_pt = np.einsum("pk,pki->pi", w, self.cp)
+            step = surf_pt - plane_pt
+            ln = np.linalg.norm(step, axis=1)
+            moved = ln > 0
+            proj_dir = np.where(
+                moved[:, None], step / np.where(moved, ln, 1.0)[:, None],
+                proj_dir,
+            )
+            dn = normal @ direction
+            middle = np.where(
+                np.abs(dn) > 1e-12,
+                np.einsum("pi,pi->p", surf_pt - start[None, :], normal)
+                / np.where(np.abs(dn) > 1e-12, dn, 1.0),
+                middle,
+            )
+
+        rel = surf_pt - start[None, :]
+        along = rel @ direction
+        ray_dist = np.linalg.norm(rel - along[:, None] * direction[None, :], axis=1)
+        valid &= ray_dist <= CFG.max_intersection_distance_from_ray
+        valid &= distance >= (further - closer) * CFG.minimal_ray_distance
+
+        d_div = (np.einsum("pki,pi->pk", self.dividers[:, :, :3], surf_pt)
+                 - self.dividers[:, :, 3])
+        outside = ((d_div[:, 0] < 0).astype(int) + 2 * (d_div[:, 1] < 0)
+                   + 4 * (d_div[:, 2] < 0))
+        # {1,2,4} -> follow side; everything else -> cIntersect
+        # (ReferenceTracer.intersect_patch's dict .get default)
+        what = np.full(P, W_INTERSECT, np.int64)
+        what[outside == 1] = W_FOLLOW0
+        what[outside == 2] = W_FOLLOW1
+        what[outside == 4] = W_FOLLOW2
+        what = np.where(valid, what, W_NONE)
+        return what, distance
+
+    def intersect(self, start, direction):
+        """Same two-pass semantics as ReferenceTracer.intersect, with the
+        pass-1 sweep vectorized; retries and the winner's full fields come
+        from the scalar path (few per ray)."""
+        start = np.asarray(start, np.float64)
+        direction = np.asarray(direction, np.float64)
+        what, dist = self._candidates_all(start, direction, True)
+        best = None
+        # direct winners: scalar-confirm each sweep candidate (few per ray)
+        for i in np.flatnonzero(what == W_INTERSECT):
+            cand = self.intersect_patch(int(i), start, direction, True)
+            if (cand is not None and cand["what"] == W_INTERSECT
+                    and (best is None or cand["distance"] < best["distance"])):
+                best = cand
+        # follow-side retries (gate-off re-evaluation of the neighbour)
+        for i in np.flatnonzero(what < W_NONE):
+            nb = int(self.neighbours[i, what[i]])
+            cand = self.intersect_patch(nb, start, direction, False)
+            if (cand is not None and cand["what"] == W_INTERSECT
+                    and (best is None or cand["distance"] < best["distance"])):
+                best = cand
+        return best
+
+
+def oracle_screen_hits(tracer, refractive_index, screen_plane, starts, dirs):
+    """The oracle's landing of each ray: entry and exit refraction through
+    `tracer` (R_INSIDE, then R_OUTSIDE) and the screen plane, in float64.
+
+    starts/dirs [R,3]; screen_plane [4] (unit normal, constant).  Returns
+    (hit2d [R,2] in the screen frame of `render.screen_hits`: u from
+    `geom.a_perpendicular` of the normal, v = normal x u; keep [R] bool)."""
+    screen = np.asarray(screen_plane, np.float64)
+    nrm, c = screen[:3], screen[3]
+    y, z = nrm[1], nrm[2]
+    if abs(y) < CFG.a_perpendicular_epsilon and abs(z) < CFG.a_perpendicular_epsilon:
+        u = np.asarray([0.0, 1.0, 0.0])
+    else:
+        u = np.asarray([0.0, -z, y]) / np.hypot(y, z)
+    v = np.cross(nrm, u)
+    starts = np.asarray(starts, np.float64)
+    dirs = np.asarray(dirs, np.float64)
+    R = len(starts)
+    hit2d = np.zeros((R, 2))
+    keep = np.zeros(R, bool)
+    for i in range(R):
+        s1, d1, st1 = tracer.refract(starts[i], dirs[i], refractive_index, R_INSIDE)
+        if st1 != R_INSIDE:
+            continue
+        s2, d2, st2 = tracer.refract(s1, d1, refractive_index, R_OUTSIDE)
+        if st2 != R_OUTSIDE:
+            continue
+        cos = d2 @ nrm
+        if abs(cos) < CFG.ray_plane_intersection_epsilon:
+            continue
+        t = (c - s2 @ nrm) / cos
+        if t <= 0:
+            continue
+        p = s2 + t * d2
+        hit2d[i] = [p @ u, p @ v]
+        keep[i] = True
+    return hit2d, keep
+
+
+def landing_disagreement(hit2d, keep, hit2d_ref, keep_ref, position_tol: float = 5e-3):
+    """Per-ray comparison of two landings (tests/test_image_parity.py's
+    measure): (rays kept by one side only, rays kept by both whose positions
+    differ by more than position_tol in either screen coordinate, the
+    position errors [n_both] of the rays kept by both)."""
+    hit2d, hit2d_ref = np.asarray(hit2d, np.float64), np.asarray(hit2d_ref, np.float64)
+    keep, keep_ref = np.asarray(keep, bool), np.asarray(keep_ref, bool)
+    both = keep & keep_ref
+    pos_err = np.abs(hit2d[both] - hit2d_ref[both]).max(axis=-1)
+    return int((keep != keep_ref).sum()), int((pos_err > position_tol).sum()), pos_err

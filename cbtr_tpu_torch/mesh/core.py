@@ -44,9 +44,31 @@ class TriMesh:
         self.face2vertex: Optional[np.ndarray] = None  # [F,3] int32 vertex ids
         self.vertices: Optional[np.ndarray] = None  # [V,3] unique welded vertices
         self.vertex_average_normals: Optional[np.ndarray] = None  # [V,3]
+        # per-corner average normals [F,3,3]; set by the native preprocessing
+        # runtime (cbtr_tpu_torch/native) and preferred by device_arrays when
+        # present (otherwise derived from vertex_average_normals)
+        self.corner_average_normals: Optional[np.ndarray] = None
 
+    # -- container facade -------------------------------------------------
     def __len__(self) -> int:
         return self.tris.shape[0]
+
+    def __getitem__(self, i):
+        return self.tris[i]
+
+    def copy(self) -> "TriMesh":
+        out = TriMesh(self.tris.copy())
+        for name in (
+            "fellow_triangles",
+            "fellow_common_side_starts",
+            "face2vertex",
+            "vertices",
+            "vertex_average_normals",
+            "corner_average_normals",
+        ):
+            val = getattr(self, name)
+            setattr(out, name, None if val is None else val.copy())
+        return out
 
     # -- small queries -----------------------------------------------------
     def smallest_side(self) -> float:
@@ -168,6 +190,7 @@ class TriMesh:
         vertex-average normals.  Mirrors Mesh::standardizeNormals."""
         self._build_vertex_index()
         self._build_face2neighbour()
+        self.corner_average_normals = None  # drop any stale native-stage stash
 
         # initial face: at the smallest-x vertex, most parallel to (-1,0,0)
         flat = self.tris.reshape(-1, 3)
@@ -284,6 +307,28 @@ class TriMesh:
         self.transform(factor, np.zeros(3, np.float32))
         return self
 
+    def split_triangles_max_side(self, max_side: float) -> None:
+        """Per-triangle divisor = ceil(longest side / max_side)
+        (mesh.cpp:375-385).  Vectorized by divisor value (few distinct
+        divisors in practice); exact per-face emission order preserved via
+        offsets, so results are identical to the per-face loop."""
+        sides = np.linalg.norm(self.tris - np.roll(self.tris, -1, axis=1), axis=-1)
+        divisors = np.maximum(
+            np.ceil(sides.max(axis=1) / max_side).astype(np.int64), 1
+        )
+        counts = divisors ** 2
+        offsets = np.concatenate([[0], np.cumsum(counts)])
+        out = np.empty((offsets[-1], 3, 3), np.float32)
+        for d in np.unique(divisors):
+            faces = np.nonzero(divisors == d)[0]
+            bary = geom.subdivision_barycentrics(int(d))  # [d^2,3,3]
+            tris = np.einsum(
+                "tcb,fbx->ftcx", bary, self.tris[faces]
+            ).astype(np.float32)
+            idx = (offsets[faces][:, None] + np.arange(d * d)[None, :]).ravel()
+            out[idx] = tris.reshape(-1, 3, 3)
+        self.tris = out
+
     def split_triangles(self, divisor: int) -> None:
         """Uniform subdivision of every triangle (mesh.cpp:389-395)."""
         bary = geom.subdivision_barycentrics(divisor)  # [T,3,3]
@@ -293,18 +338,27 @@ class TriMesh:
             .astype(np.float32)
         )
 
-    # -- IO (mesh.cpp:399-417) ----------------------------------------------
+    # -- IO (mesh.cpp:399-430) ----------------------------------------------
     def read(self, path: str) -> "TriMesh":
         self.tris = stl_io.read_stl(path)
         self.fellow_triangles = None
         return self
+
+    def write(self, path: str, binary: bool = False) -> None:
+        if binary:
+            stl_io.write_stl_binary(path, self.tris)
+        else:
+            stl_io.write_stl(path, self.tris)
 
     # -- device export -------------------------------------------------------
     def device_arrays(self) -> Dict[str, np.ndarray]:
         """Flat arrays consumed by the Bézier construction pass."""
         if self.fellow_triangles is None:
             raise ValueError("run standardize_normals() first")
-        corner_avg_normals = self.vertex_average_normals[self.face2vertex]
+        if self.corner_average_normals is not None:
+            corner_avg_normals = self.corner_average_normals
+        else:
+            corner_avg_normals = self.vertex_average_normals[self.face2vertex]
         return dict(
             tris=self.tris,
             fellow_triangles=self.fellow_triangles.astype(np.int32),

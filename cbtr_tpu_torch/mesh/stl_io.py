@@ -1,6 +1,6 @@
-"""STL file reading, host-side.
+"""STL file I/O, host-side.
 
-Replaces the reference's stl_reader submodule (reference/mesh.cpp:399-417).
+Replaces the reference's stl_reader submodule (reference/mesh.cpp:399-430).
 Binary format: 80-byte header, uint32 triangle count, then per triangle
 12 f32 (normal + 3 vertices) + uint16 attribute = 50 bytes.
 """
@@ -54,3 +54,30 @@ def _read_ascii(text: str) -> np.ndarray:
         raise ValueError("ASCII STL vertex count not a multiple of 3")
     return arr.reshape(-1, 3, 3)
 
+
+def write_stl(path: str, triangles: np.ndarray) -> None:
+    """ASCII STL writer matching Mesh::writeMesh (mesh.cpp:419-430): zeroed
+    facet normals, Blender's solid name, 6 significant digits."""
+    tris = np.asarray(triangles, dtype=np.float32).reshape(-1, 3, 3)
+    with open(path, "w") as out:
+        out.write("solid Exported from Blender-2.82 (sub 7)\n")
+        for tri in tris:
+            out.write("facet normal 0.000000 0.000000 0.000000\nouter loop\n")
+            for vtx in tri:
+                out.write(f"vertex {vtx[0]:g} {vtx[1]:g} {vtx[2]:g}\n")
+            out.write("endloop\nendfacet\n")
+        out.write("endsolid Exported from Blender-2.82 (sub 7)\n")
+
+
+def write_stl_binary(path: str, triangles: np.ndarray) -> None:
+    """Binary STL writer (compact outputs for large tessellations)."""
+    tris = np.asarray(triangles, dtype=np.float32).reshape(-1, 3, 3)
+    count = tris.shape[0]
+    records = np.zeros((count, 50), dtype=np.uint8)
+    block = np.zeros((count, 4, 3), dtype=np.float32)
+    block[:, 1:4, :] = tris
+    records[:, :48] = block.reshape(count, 12).view(np.uint8)
+    with open(path, "wb") as out:
+        out.write(b"\0" * 80)
+        out.write(struct.pack("<I", count))
+        out.write(records.tobytes())

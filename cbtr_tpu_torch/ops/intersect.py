@@ -23,6 +23,9 @@ Stages 1+2 are `cuda_sweep.sweep_select` (K1, P <= 1024) or
 `cuda_winner.sweep_winner` (K2, P > 1024): a CUDA kernel for tensors on the
 GPU, its plain PyTorch twin for tensors on the CPU.  `sweep_codes` and
 `select_candidates` are the staged plain form the twin is built from.
+`candidates_with_retry` + `select_best` are the dense debug formulation of
+the same semantics (every pair's candidate, the retry re-evaluated per
+pair); `intersect_rays` never calls them.
 
 Every division and normalization is epsilon-guarded, and lanes already known
 dead carry tame values, so no NaN reaches a gradient (the JAX package's
@@ -299,6 +302,75 @@ def recompute_winner(patches: BezierPatches, start, direction, any_hit, win,
     if with_check:
         return hit, int((any_hit & (what_w != WHAT_INTERSECT)).sum())
     return hit
+
+
+def candidates_with_retry(local_patches: BezierPatches,
+                          full_patches: BezierPatches, local_base, start,
+                          direction):
+    """Per-(ray, local patch) candidates after the follow-side retry.
+
+    The dense/debug path; the production path is sweep -> select ->
+    recompute.  local_patches: the patch rows this caller scans (a shard or
+    the whole table); full_patches: the complete table the retry gathers
+    neighbour rows from (neighbour ids are global); local_base: global id
+    of local_patches row 0.  start/direction [R,3].
+
+    Returns (what, distance, point, normal, bary, cos, global_patch_id), each
+    [R, P_local(, 3)].
+    """
+    P = local_patches.num_patches
+    s = start[:, None, :]  # [R,1,3] broadcast over patches
+    d = direction[:, None, :]
+
+    # pass 1: local patches, domain gate ON
+    what1, dist1, pt1, n1, b1, cos1 = patch_candidates(local_patches, s, d, True)
+
+    # follow-side retry: evaluate the indicated neighbour, gate OFF
+    # (reference/bezierMesh.cpp:213-217)
+    follow = what1 < WHAT_NONE
+    side = what1.clamp(0, 2).to(torch.int64)
+    local_ids = torch.arange(P, device=what1.device)
+    nb = local_patches.neighbours.to(torch.int64)[local_ids, side]    # [R,P]
+    nb = torch.where(follow, nb, 0)
+    rows = full_patches.row(nb)  # [R,P] gathered patch rows
+    what2, dist2, pt2, n2, b2, cos2 = patch_candidates(rows, s, d, False)
+
+    def merge(a2, a1):
+        return torch.where(follow[..., None] if a1.ndim == 3 else follow, a2, a1)
+
+    hit_patch = torch.where(follow, nb, local_base + local_ids)
+    return (
+        merge(what2, what1),
+        merge(dist2, dist1),
+        merge(pt2, pt1),
+        merge(n2, n1),
+        merge(b2, b1),
+        merge(cos2, cos1),
+        hit_patch.to(torch.int32),
+    )
+
+
+def select_best(what, dist, pt, n, b, cos, hit_patch) -> RayHit:
+    """Min-distance cIntersect wins (reference/bezierMesh.cpp:220-222), the
+    lowest patch slot on ties; reduces the trailing patch axis."""
+    considered = what == WHAT_INTERSECT
+    key = torch.where(considered, dist, _BIG)
+    best = key.argmin(dim=-1)  # [R]: the first minimal index
+
+    def pick(m):
+        idx = best[:, None, None].expand(-1, 1, 3) if m.ndim == 3 else best[:, None]
+        return m.gather(1, idx).squeeze(1)
+
+    any_hit = considered.any(dim=-1)
+    return RayHit(
+        what=torch.where(any_hit, WHAT_INTERSECT, WHAT_NONE).to(torch.int32),
+        distance=torch.where(any_hit, pick(dist), _BIG),
+        point=pick(pt),
+        normal=pick(n),
+        bary=pick(b),
+        cos_incidence=pick(cos),
+        patch=torch.where(any_hit, pick(hit_patch), -1).to(torch.int32),
+    )
 
 
 def _winner_chunk(patches: BezierPatches, start, direction, backend: str):

@@ -41,7 +41,17 @@ import cbtr_tpu_torch.parallel.sharding
 import cbtr_tpu_torch.parallel.patch_parallel
 import cbtr_tpu_torch.parallel.multihost
 import cbtr_tpu_torch.entry
+import cbtr_tpu_torch.native as nat
+import cbtr_tpu_torch.harness.drivers
+import cbtr_tpu_torch.harness.visual
 import torch.distributed as dist
+from cbtr_tpu_torch.harness.drivers import followers_report, follow_triples
+from cbtr_tpu_torch.harness.reference_tracer import (FastReferenceTracer,
+    oracle_screen_hits, landing_disagreement)
+from cbtr_tpu_torch.ops.intersect import candidates_with_retry, select_best
+from cbtr_tpu_torch.geom import (perimeter, to_which_side, plane_project,
+    ray_sphere_hit, ritter_bounding_sphere, divide_triangle_np)
+from cbtr_tpu_torch.mesh.stl_io import write_stl, write_stl_binary
 from cbtr_tpu_torch.render import (OrthoGrid, DeviceEmitter, sample_hemisphere,
     angle_sweep_rays, pinhole_ray_grid, render_emitter_image,
     render_emitter_image_device, render_surface_normals)
@@ -59,6 +69,10 @@ assert cs.sweep_select.launches == 0 and cw.sweep_winner.launches == 0
 assert cc.sweep_codes_cuda.launches == 0 and fp.fma_chains.launches == 0
 assert ct.build_tables.launches == 0
 assert not dist.is_initialized()  # importing the parallel layer starts no group
+assert nat._lib is None and nat.build_error() is None   # no g++ run, nothing loaded
+if os.path.exists("/proc/self/maps"):
+    with open("/proc/self/maps") as maps:
+        assert "libcbtr_" not in maps.read()      # no library of the port mapped
 print("IMPORT_OK")
 """
 

@@ -26,9 +26,13 @@ from cbtr_tpu.bezier import build_from_trimesh as jax_build
 from cbtr_tpu.harness.measure import preprocess as jax_preprocess
 from cbtr_tpu.mesh.core import make_unit_sphere as jax_sphere
 from cbtr_tpu.models import scenes as jax_scenes
+from cbtr_tpu.ops import intersect as jix
 from cbtr_tpu.ops.intersect import intersect_rays as jax_intersect
 
+from cbtr_tpu_torch.bezier import build_from_trimesh
 from cbtr_tpu_torch.convert import patches_from_numpy
+from cbtr_tpu_torch.harness import preprocess
+from cbtr_tpu_torch.mesh.core import make_unit_sphere
 from cbtr_tpu_torch.ops import cuda_sweep as cs
 from cbtr_tpu_torch.ops import intersect as ix
 
@@ -132,3 +136,109 @@ def test_backends_and_batch_shape(cases):
         assert torch.equal(a, c.reshape(a.shape))
     with pytest.raises(ValueError):
         ix.intersect_rays(port_p, s, dd, backend="pallas")
+
+
+# ---------------------------------------------------------------------------
+# the dense debug path (tests/test_intersect.py:242-270)
+# ---------------------------------------------------------------------------
+
+CENTER = np.array([5.0, 0.0, 0.0], np.float32)
+
+
+def _dense_rays():
+    """tests/test_intersect.py's 96 rays engineered to include seam and edge
+    hits (off-axis, varied origins)."""
+    rng = np.random.default_rng(21)
+    n = 96
+    start = rng.normal(size=(n, 3)).astype(np.float32) * 0.2
+    target = CENTER + rng.uniform(-1.0, 1.0, (n, 3)).astype(np.float32)
+    d = target - start
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    return start, d.astype(np.float32)
+
+
+@pytest.fixture(scope="module")
+def dense_sphere():
+    """The sphere 15 x 7 at CENTER, built by each package (both preprocess
+    on the native runtime by default)."""
+    mesh = preprocess(make_unit_sphere(15, 7))
+    mesh.translate(CENTER)
+    jax_mesh = jax_preprocess(jax_sphere(15, 7))
+    jax_mesh.translate(CENTER)
+    return build_from_trimesh(preprocess(mesh), device="cpu"), jax_build(jax_preprocess(jax_mesh))
+
+
+def test_dense_retry_path_matches_production_pipeline(dense_sphere):
+    """`candidates_with_retry` + `select_best` (the dense formulation of the
+    follow-side retry, reference/bezierMesh.cpp:213-217) give the same
+    RayHit as the sweep -> select -> recompute pipeline (here K1's plain
+    twin), with tests/test_intersect.py's bars."""
+    patches, _ = dense_sphere
+    start, d = _dense_rays()
+    s, dd = torch.tensor(start), torch.tensor(d)
+    prod = ix._intersect_chunk(patches, s, dd, backend="plain")
+    dense = ix.select_best(*ix.candidates_with_retry(patches, patches, 0, s, dd))
+
+    assert torch.equal(prod.what, dense.what)
+    hit = prod.what == ix.WHAT_INTERSECT
+    assert int(hit.sum()) >= 48, "fixture too weak"
+    assert torch.equal(prod.patch[hit], dense.patch[hit])
+    torch.testing.assert_close(prod.distance[hit], dense.distance[hit], rtol=1e-6, atol=1e-6)
+    for a, b in ((prod.point, dense.point), (prod.normal, dense.normal),
+                 (prod.bary, dense.bary)):
+        torch.testing.assert_close(a[hit], b[hit], rtol=1e-5, atol=1e-5)
+
+
+def test_dense_retry_path_matches_jax(dense_sphere):
+    """On the JAX package's patch tables and the same rays, the port's
+    `candidates_with_retry` against the JAX function pair by pair (codes
+    and retry targets equal on every pair, the floats of every pair with an
+    accepted candidate within 1e-4), and `select_best` against the JAX
+    `select_best` ray by ray."""
+    _, ref_p = dense_sphere
+    port_p = _to_port(ref_p)
+    start, d = _dense_rays()
+    got = ix.candidates_with_retry(port_p, port_p, 0, torch.tensor(start), torch.tensor(d))
+    with jax.disable_jit():
+        want = jix.candidates_with_retry(ref_p, ref_p, 0, start, d)
+    what_g, what_w = got[0].numpy(), np.asarray(want[0])
+    np.testing.assert_array_equal(what_g, what_w)
+    np.testing.assert_array_equal(got[6].numpy(), np.asarray(want[6]))
+    accepted = what_w == ix.WHAT_INTERSECT
+    assert accepted.sum() >= 48
+    for g, w in zip(got[1:6], want[1:6]):
+        np.testing.assert_allclose(g.numpy()[accepted], np.asarray(w)[accepted],
+                                   rtol=1e-4, atol=1e-4)
+    best_g = ix.select_best(*got)
+    with jax.disable_jit():
+        best_w = jix.select_best(*want)
+    np.testing.assert_array_equal(best_g.what.numpy(), np.asarray(best_w.what))
+    np.testing.assert_array_equal(best_g.patch.numpy(), np.asarray(best_w.patch))
+
+
+def test_dense_retry_path_sharded_over_patches(dense_sphere):
+    """The dense path over two halves of the table (each half scans its own
+    rows, the retry gathers from the whole table by global id), the halves'
+    candidates side by side: the same RayHit as over the whole table."""
+    patches, _ = dense_sphere
+    start, d = _dense_rays()
+    s, dd = torch.tensor(start), torch.tensor(d)
+    P = patches.num_patches
+    half = P // 2
+    parts = [ix.candidates_with_retry(patches.row(torch.arange(lo, hi)), patches, lo, s, dd)
+             for lo, hi in ((0, half), (half, P))]
+    sharded = ix.select_best(*(torch.cat(f, dim=1) for f in zip(*parts)))
+    whole = ix.select_best(*ix.candidates_with_retry(patches, patches, 0, s, dd))
+    for a, b in zip(sharded, whole):
+        assert torch.equal(a, b)
+    assert int((whole.what == ix.WHAT_INTERSECT).sum()) >= 48
+
+
+def test_patches_row_gathers_every_leaf(dense_sphere):
+    patches, _ = dense_sphere
+    idx = torch.tensor([[3, 0], [7, 7]])
+    rows = patches.row(idx)
+    for name, leaf in patches.leaves().items():
+        got = getattr(rows, name)
+        assert got.shape == (2, 2) + leaf.shape[1:], name
+        assert torch.equal(got[1, 0], leaf[7]) and torch.equal(got[0, 1], leaf[0]), name

@@ -2,7 +2,8 @@
 
 Same inputs on both sides: the robot.stl fixture and the unit sphere go
 through the port's read_stl -> preprocess -> build_patches and through the
-JAX package's NumPy preprocessing (use_native=False) -> build_from_trimesh.
+JAX package's NumPy preprocessing (use_native=False on both sides) ->
+build_from_trimesh; the sphere also through both default (native) paths.
 
 Tolerances: the welded triangles and the topology are NumPy on both sides
 and must be equal (tris to 1e-6 for the f32 transforms).  On the sphere the
@@ -43,7 +44,7 @@ LEAVES = ("control_points", "underlying", "dividers", "bary_inverse",
 
 def _port_robot_mesh():
     mesh = TriMesh().read(scenes.robot_stl_path())
-    return preprocess(mesh)
+    return preprocess(mesh, use_native=False)
 
 
 def _jax_robot_mesh():
@@ -72,12 +73,31 @@ def _assert_no_further_from_f64(port32, jax32, port64, factor=1.0):
 
 
 def test_sphere_preprocess_and_build_match_jax():
-    port_mesh = preprocess(make_unit_sphere(7, 3))
+    port_mesh = preprocess(make_unit_sphere(7, 3), use_native=False)
     jax_mesh = jax_preprocess(jax_sphere(7, 3), use_native=False)
     _assert_topology_equal(port_mesh, jax_mesh)
     port = build_from_trimesh(port_mesh, device="cpu")
     ref = jax_build(jax_mesh)
     assert port.num_patches == ref.num_patches == 3 * len(jax_mesh)
+    np.testing.assert_array_equal(port.neighbours.numpy(), np.asarray(ref.neighbours))
+    for name in LEAVES:
+        np.testing.assert_allclose(
+            getattr(port, name).numpy(), np.asarray(getattr(ref, name)),
+            rtol=1e-5, atol=1e-6, err_msg=name,
+        )
+
+
+def test_sphere_default_preprocess_and_build_match_jax():
+    """Both packages' default path (the native runtime): the same mesh bit
+    for bit, and the sphere's f32 tables within the NumPy path's bars.  The
+    robot's default scene is held in tests/test_torch_native.py."""
+    port_mesh = preprocess(make_unit_sphere(7, 3))
+    jax_mesh = jax_preprocess(jax_sphere(7, 3))
+    assert port_mesh.corner_average_normals is not None
+    for key, value in port_mesh.device_arrays().items():
+        np.testing.assert_array_equal(value, jax_mesh.device_arrays()[key], err_msg=key)
+    port = build_from_trimesh(port_mesh, device="cpu")
+    ref = jax_build(jax_mesh)
     np.testing.assert_array_equal(port.neighbours.numpy(), np.asarray(ref.neighbours))
     for name in LEAVES:
         np.testing.assert_allclose(
