@@ -16,7 +16,12 @@ rays, 128 x 128 image, zero target):
   per-tile counts on the card).
 
     python -m cbtr_tpu_torch.harness.profile_step [--res 512] [--runs 5]
-        [--device cuda] [--out profile.json]
+        [--chunk 0] [--device cuda] [--out profile.json]
+
+--chunk N scans the rays in chunks of N, as the 4096^2 scripts do
+(`python -m cbtr_tpu_torch.harness.profile_step --res 4096 --chunk 1048576`
+profiles their render and step); the tables and the listed fraction are
+then those of the first chunk.
 
 It runs on the card and raises where there is none.  --device cpu (for
 debugging at a small --res) takes the host times only.
@@ -124,7 +129,7 @@ def _busy(fn, cuda: bool) -> dict:
     return {"device_ops": len(ranges), "busy_ms": busy / 1e3 if ranges else None}
 
 
-def run_profile(res: int = 512, runs: int = 5, device="cuda") -> dict:
+def run_profile(res: int = 512, runs: int = 5, device="cuda", chunk: int = 0) -> dict:
     dev = torch.device(device)
     cuda = dev.type == "cuda"
     if cuda and not torch.cuda.is_available():
@@ -138,15 +143,18 @@ def run_profile(res: int = 512, runs: int = 5, device="cuda") -> dict:
     target = torch.zeros((128, 128), dtype=torch.float32, device=dev)
     params = lens_model.params_from_scene(scene)
     # step size 0: every step runs on the same lens, so every run is the same work
-    step = lens_model.make_train_step(scene.screen_plane, target, learning_rate=0.0)
+    step = lens_model.make_train_step(scene.screen_plane, target, learning_rate=0.0,
+                                      chunk_size=chunk)
 
     def forward():
         with torch.no_grad():
             return rd.render_lens_image(patches, scene.refractive_index, start,
-                                        direction, scene.screen_plane, resolution=128)
+                                        direction, scene.screen_plane, resolution=128,
+                                        chunk_size=chunk)
 
     def loss():
-        return lens_model.lens_loss(params, start, direction, scene.screen_plane, target)
+        return lens_model.lens_loss(params, start, direction, scene.screen_plane, target,
+                                    chunk_size=chunk)
 
     forward(), step(params, start, direction)          # warm-up (and the build)
     _sync(cuda)
@@ -184,7 +192,9 @@ def run_profile(res: int = 512, runs: int = 5, device="cuda") -> dict:
         torch.cuda.synchronize()
         peak_gib = torch.cuda.max_memory_allocated(dev) / 2 ** 30
 
-    inputs = cs.prepare_inputs(patches, start, direction)
+    first = slice(0, chunk or start.shape[0])
+    s1, d1 = start[first], direction[first]
+    inputs = cs.prepare_inputs(patches, s1, d1)
     if cuda:
         counts = cs.launch(inputs).counts
     else:
@@ -192,11 +202,12 @@ def run_profile(res: int = 512, runs: int = 5, device="cuda") -> dict:
     listed = float(counts.sum()) / (counts.numel() * inputs.bounds.shape[0])
     fwd_busy = _busy(forward, cuda)
     step_busy = _busy(lambda: step(params, start, direction), cuda)
-    tables_busy = _busy(lambda: cs.prepare_inputs(patches, start, direction), cuda)
+    tables_busy = _busy(lambda: cs.prepare_inputs(patches, s1, d1), cuda)
     share = (lambda b, w: b / w if b is not None else None)
     return {
         "device": torch.cuda.get_device_name(dev) if cuda else "cpu",
         "rays": int(start.shape[0]), "patches": patches.num_patches, "runs": runs,
+        "chunk": chunk,
         "stages_forward": stages,
         "forward_ms": forward_ms, "step_ms": step_ms,
         "forward_with_grad_ms": statistics.median(fwd_grad),
@@ -213,11 +224,13 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--res", type=int, default=512, help="ray grid side")
     ap.add_argument("--runs", type=int, default=5)
+    ap.add_argument("--chunk", type=int, default=0,
+                    help="rays a chunk of intersect_rays (0: one chunk)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (the default; raises without a card) or cpu")
     ap.add_argument("--out", default="", help="also write the result here (JSON)")
     args = ap.parse_args(argv)
-    result = run_profile(args.res, args.runs, args.device)
+    result = run_profile(args.res, args.runs, args.device, args.chunk)
     for label, s in result["stages_forward"].items():
         dev_ms = "not measured" if s["device_ms"] is None else f"{s['device_ms']:.3f} ms"
         print(f"{label:20s} calls {s['calls']}  device {dev_ms}  host {s['host_ms']:.3f} ms")

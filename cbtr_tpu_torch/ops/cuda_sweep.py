@@ -301,15 +301,16 @@ def sphere_hit_pairs(patch_t, rays_t):
 
 
 def sweep_select_reference(patches: BezierPatches, start, direction,
-                           cull: bool = True, use_aabb: bool = True):
+                           cull: bool = True, use_aabb: bool = True,
+                           block_p: int = BLOCK_P):
     """Plain PyTorch version of K1: (any_hit [R], win [R] i32, win_dist [R]).
 
     cull=True computes the kernel's function: per-pair `_candidates_core`
     codes, pairs outside the listed-and-gated (tile x block) set forced to
-    WHAT_NONE, then `select_candidates`; use_aabb as in `tile_block_lists`.
-    cull=False is `sweep_codes` followed by `select_candidates` over every
-    pair (the JAX package's XLA path).  Rays are processed in chunks of
-    _REFERENCE_CHUNK_R."""
+    WHAT_NONE, then `select_candidates`; use_aabb and block_p as in
+    `tile_block_lists`.  cull=False is `sweep_codes` followed by
+    `select_candidates` over every pair (the JAX package's XLA path).  Rays
+    are processed in chunks of _REFERENCE_CHUNK_R."""
     R = start.shape[0]
     P = patches.num_patches
     start = start.to(torch.float32)
@@ -327,15 +328,15 @@ def sweep_select_reference(patches: BezierPatches, start, direction,
 
     rays_t = pad_rays(start, direction)
     patch_t = pack_patch_table(patches)
-    listed = listed_blocks(*tile_block_lists(patches, rays_t, use_aabb=use_aabb),
-                           patch_t.shape[0])
+    listed = listed_blocks(*tile_block_lists(patches, rays_t, block_p, use_aabb),
+                           patch_t.shape[0], block_p)
 
     tiles_per_chunk = _REFERENCE_CHUNK_R // TILE_R
     outs = []
     for t0 in range(0, listed.shape[0], tiles_per_chunk):
         rt = rays_t[:, t0 * TILE_R:(t0 + tiles_per_chunk) * TILE_R]
         keep = evaluated_pairs(listed[t0:t0 + tiles_per_chunk],
-                               sphere_hit_pairs(patch_t, rt))[:, :P]
+                               sphere_hit_pairs(patch_t, rt), block_p)[:, :P]
         code, dist = ix.sweep_codes(patches, rt[0:3].T, rt[3:6].T)
         code = torch.where(keep, code, ix.WHAT_NONE)
         outs.append(ix.select_candidates(code, dist, patches.neighbours))
@@ -486,10 +487,11 @@ class KernelInputs:
 
     rays_t: torch.Tensor    # [8, R_pad] f32
     patch_t: torch.Tensor   # [P_pad, 64] f32
-    bounds: torch.Tensor    # [P_pad / BLOCK_P, 12] f32 (`block_bounds`)
+    bounds: torch.Tensor    # [P_pad / block_p, 12] f32 (`block_bounds`)
     nb: torch.Tensor        # [P_pad, 3] i32 neighbour ids, -1 on padding
     num_patches: int
     use_aabb: bool = True   # the cull's AABB leg (`tile_block_lists`)
+    block_p: int = BLOCK_P  # patches per candidate block (the bounds' rows)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -504,19 +506,22 @@ class KernelOutputs:
 
 
 def prepare_inputs(patches: BezierPatches, start, direction,
-                   use_aabb: bool = True) -> KernelInputs:
+                   use_aabb: bool = True, block_p: int = BLOCK_P) -> KernelInputs:
     """The kernel's tables on the rays' device: the rays (`pad_rays`); patch
     table, block bounds and neighbours from `cuda_tables.build_tables` (the
-    table kernel on the card, the plain versions on the CPU); use_aabb as in
-    `tile_block_lists`.  No lists: the kernels cull for themselves."""
+    table kernel on the card, the plain versions on the CPU); use_aabb and
+    block_p as in `tile_block_lists` (the main path runs BLOCK_P; 32 is the
+    JAX package's block above its ray cap, for comparisons).  No lists: the
+    kernels cull for themselves."""
     from . import cuda_tables       # it imports this module for the plain versions
 
     device = start.device
     if patches.device != device or direction.device != device:
         raise ValueError("patches, start and direction must share one device")
     rays_t = pad_rays(start.to(torch.float32), direction.to(torch.float32))
-    patch_t, bounds, nb = cuda_tables.build_tables(patches, BLOCK_P)
-    return KernelInputs(rays_t, patch_t, bounds, nb, patches.num_patches, use_aabb)
+    patch_t, bounds, nb = cuda_tables.build_tables(patches, block_p)
+    return KernelInputs(rays_t, patch_t, bounds, nb, patches.num_patches, use_aabb,
+                        block_p)
 
 
 def check_inputs(inputs: KernelInputs, kernel: str):
@@ -524,13 +529,14 @@ def check_inputs(inputs: KernelInputs, kernel: str):
     shapes, types and layout `prepare_inputs` gives.  Returns (T, P_pad)."""
     device = inputs.rays_t.device
     R_pad, P_pad = inputs.rays_t.shape[-1], inputs.patch_t.shape[0]
-    if R_pad % TILE_R or P_pad % _PATCH_PAD or not 0 < inputs.num_patches <= P_pad:
+    if R_pad % TILE_R or P_pad % _PATCH_PAD or not 0 < inputs.num_patches <= P_pad \
+            or _PATCH_PAD % inputs.block_p:
         raise ValueError(f"unsupported shape: P = {inputs.num_patches}, "
-                         f"R_pad = {R_pad}, P_pad = {P_pad}")
+                         f"R_pad = {R_pad}, P_pad = {P_pad}, block_p = {inputs.block_p}")
     for t, name, dtype, shape in (
         (inputs.rays_t, "rays_t", torch.float32, (8, R_pad)),
         (inputs.patch_t, "patch_t", torch.float32, (P_pad, _N_ROWS)),
-        (inputs.bounds, "bounds", torch.float32, (P_pad // BLOCK_P, _N_BOUNDS)),
+        (inputs.bounds, "bounds", torch.float32, (P_pad // inputs.block_p, _N_BOUNDS)),
         (inputs.nb, "neighbours", torch.int32, (P_pad, 3)),
     ):
         _check(t, name, dtype, shape, device)
@@ -548,7 +554,7 @@ def launch_kernel(stem: str, inputs: KernelInputs, lists: bool = False,
     neither).  Every launch adds one to its wrapper's count
     (`sweep_select.launches`, `cuda_winner.sweep_winner.launches`)."""
     T, P_pad = check_inputs(inputs, "K1" if stem == "sweep_select" else "K2")
-    device, R_pad, B = inputs.rays_t.device, T * TILE_R, P_pad // BLOCK_P
+    device, R_pad, B = inputs.rays_t.device, T * TILE_R, P_pad // inputs.block_p
     out = KernelOutputs(
         dist=torch.empty(R_pad, dtype=torch.float32, device=device),
         win=torch.empty(R_pad, dtype=torch.int32, device=device),
@@ -565,7 +571,7 @@ def launch_kernel(stem: str, inputs: KernelInputs, lists: bool = False,
             out.dist.data_ptr(), out.win.data_ptr(), out.counts.data_ptr(),
             out.lists.data_ptr() if lists else None,
             out.pairs.data_ptr() if pairs else None,
-            T, inputs.num_patches, P_pad, BLOCK_P, int(inputs.use_aabb),
+            T, inputs.num_patches, P_pad, inputs.block_p, int(inputs.use_aabb),
             int(CFG.root_search_iterations),
             CFG.ray_plane_intersection_epsilon,
             CFG.intersection_estimation_epsilon,

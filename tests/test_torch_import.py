@@ -44,6 +44,18 @@ import cbtr_tpu_torch.entry
 import cbtr_tpu_torch.native as nat
 import cbtr_tpu_torch.harness.drivers
 import cbtr_tpu_torch.harness.visual
+import cbtr_tpu_torch.benchmarks.records
+import cbtr_tpu_torch.benchmarks.design_lens
+import cbtr_tpu_torch.benchmarks.multiprocess_render
+import cbtr_tpu_torch.benchmarks.render4k
+import cbtr_tpu_torch.benchmarks.train4k
+import cbtr_tpu_torch.benchmarks.emitter4k
+import cbtr_tpu_torch.benchmarks.scaling_bench
+import cbtr_tpu_torch.benchmarks.cull_probe
+import cbtr_tpu_torch.benchmarks.winner_probe
+import cbtr_tpu_torch.benchmarks.inflation_probe
+import cbtr_tpu_torch.benchmarks.solve3x3_bench
+import cbtr_tpu_torch.benchmarks.gen_perf_table
 import torch.distributed as dist
 from cbtr_tpu_torch.harness.drivers import followers_report, follow_triples
 from cbtr_tpu_torch.harness.reference_tracer import (FastReferenceTracer,

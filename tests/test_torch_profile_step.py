@@ -33,3 +33,14 @@ def test_profile_step_sees_every_stage_on_cpu():
     assert rd.trace_through_lens.__module__ == "cbtr_tpu_torch.optics.lens"
     assert ix.recompute_winner.__name__ == "recompute_winner"
     assert cs.launch.__name__ == "launch"
+
+
+def test_profile_step_chunks_the_rays_on_cpu():
+    """--chunk reaches the forward: each refraction searches and recomputes
+    its winners a chunk at a time."""
+    result = profile_step.run_profile(res=16, runs=1, device="cpu", chunk=64)
+    assert result["chunk"] == 64 and result["rays"] == 256
+    calls = {label: s["calls"] for label, s in result["stages_forward"].items()}
+    assert calls["winner_search"] == 2 * 4 and calls["recompute_winner"] == 2 * 4, calls
+    assert calls["screen_hits"] == 1 and calls["splat_bilinear"] == 1, calls
+    assert 0.0 < result["listed_fraction"] <= 1.0

@@ -122,6 +122,26 @@ def test_culled_twin_matches_pallas_kernel(cases, case):
 
 
 @pytest.mark.parametrize("case", ["sphere1024", "robot1024"])
+def test_culled_twin_at_block_32_matches_pallas_kernel(cases, case):
+    """The twin at the JAX package's coarser block (32 patches, what
+    `intersect_rays` takes above its ray cap) against
+    `sweep_select_pallas(block_p=32)`: the same bar and the same excused
+    rays as at block 16, and the lists equal to the JAX builder's."""
+    ref_p, port_p, start, d = cases[case]
+    ref = jax_ps.sweep_select_pallas(ref_p, start, d, interpret=True, block_p=32)
+    xla = _jax_xla_winners(ref_p, start, d)
+    got = _port(cs.sweep_select_reference, port_p, start, d, block_p=32)
+    kernel_vs_xla = np.asarray(ref[0]) != np.asarray(xla[0])
+    assert kernel_vs_xla.sum() <= (2 if case == "robot1024" else 0)
+    _assert_winners_agree(got, ref, excused=kernel_vs_xla)
+    rays_t = cs.pad_rays(torch.tensor(start), torch.tensor(d))
+    counts, lists = cs.tile_block_lists(port_p, rays_t, 32)
+    c_ref, l_ref = jax_ps.tile_block_lists(ref_p, rays_t.numpy(), 128, 32)
+    np.testing.assert_array_equal(counts.numpy(), np.asarray(c_ref))
+    np.testing.assert_array_equal(lists.numpy(), np.asarray(l_ref))
+
+
+@pytest.mark.parametrize("case", ["sphere1024", "robot1024"])
 def test_unculled_twin_matches_xla_path(cases, case):
     ref_p, port_p, start, d = cases[case]
     _assert_winners_agree(
