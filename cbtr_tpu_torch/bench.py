@@ -80,6 +80,7 @@ from .models import (
 from .models.fit import emitter_rays
 from .models.scenes import robot_stl_path
 from .ops import cuda_codes as cc
+from .ops import cuda_segment as sg
 from .ops import cuda_sweep as cs
 from .ops import cuda_winner as cw
 from .ops import intersect as ix
@@ -96,6 +97,7 @@ WRAPPERS = {
     "winner": cw.sweep_winner,
     "sweep_codes": cc.sweep_codes_cuda,
     "fma_chains": fp.fma_chains,
+    "segment_sum": sg.segment_sum,
 }
 
 

@@ -97,8 +97,8 @@ def run(n: int = 4096 * 4096, belts: int = 64, image_res: int = 256, host_path_n
         mesh, scene.screen_plane, target, em, resolution=image_res, learning_rate=1e-4,
         chunk_size=chunk), params)
     records.reset_peak(dev)
-    step()                                                      # build + warm
-    ((loss, g_cp, _), dt_train), step_launches = records.counted(
+    first_step = step()                                         # build + warm
+    ((loss, g_cp, g_n), dt_train), step_launches = records.counted(
         lambda: records.wall_s(step, dev))
     peak_step = records.peak_gib(dev)
     gn = float(torch.linalg.vector_norm(g_cp))
@@ -135,6 +135,7 @@ def run(n: int = 4096 * 4096, belts: int = 64, image_res: int = 256, host_path_n
             "rays_per_s_fwd_bwd": round(n / dt_train, 1),
             "loss": float(loss),
             "grad_cp_norm": round(gn, 6),
+            "deterministic": records.checksum(*first_step) == records.checksum(loss, g_cp, g_n),
             "peak_memory_gib": peak_step,
             "launches_per_step": step_launches,
         },

@@ -120,9 +120,20 @@ BENCH_ROWS = (
 )
 
 
+def _records(artifacts: str, stem: str) -> list:
+    """The records `<stem>_*.json` in PR order: by the number at the end of
+    the name (pr9 before pr10), then by name."""
+    def order(path):
+        name = os.path.splitext(os.path.basename(path))[0]
+        digits = re.search(r"(\d+)$", name)
+        return (int(digits.group(1)) if digits else -1, name)
+
+    return sorted(glob.glob(os.path.join(artifacts, f"{stem}_*.json")), key=order)
+
+
 def build_table(artifacts: str = ARTIFACTS) -> str:
     benches = []
-    for path in sorted(glob.glob(os.path.join(artifacts, "BENCH_*.json"))):
+    for path in _records(artifacts, "BENCH"):
         name = os.path.splitext(os.path.basename(path))[0][len("BENCH_"):]
         benches.append((name, load_record(path)))
     lines = []
@@ -138,7 +149,7 @@ def build_table(artifacts: str = ARTIFACTS) -> str:
     for stem, label in (("RENDER4K", "4K render (16.8M rays, fwd)"),
                         ("TRAIN4K", "4K train step (16.8M rays, fwd+bwd)"),
                         ("EMITTER4K", "16.8M-ray device-emitter render (point source, fwd)")):
-        paths = sorted(glob.glob(os.path.join(artifacts, f"{stem}_*.json")))
+        paths = _records(artifacts, stem)
         if not paths:
             continue
         rec = load_record(paths[-1])

@@ -114,9 +114,9 @@ def window_stats(fn, device: torch.device, windows: int = 5, inner: int = 2,
 
 @contextlib.contextmanager
 def deterministic(on: bool):
-    """torch's deterministic algorithms inside the block, if `on` (the
-    atomic index_add of the splat and the gather's backward become sorted,
-    fixed-order forms)."""
+    """torch's deterministic algorithms inside the block, if `on`: the
+    cross-check of the default mode, which is reproducible already (the
+    splat and the gather's backward are fixed-order segment sums)."""
     if not on:
         yield
         return
@@ -129,12 +129,12 @@ def deterministic(on: bool):
 
 def launch_counts() -> dict:
     """{kernel: its wrapper's launch counter} for every kernel of the port."""
-    from ..ops import cuda_codes, cuda_sweep, cuda_tables, cuda_winner
+    from ..ops import cuda_codes, cuda_segment, cuda_sweep, cuda_tables, cuda_winner
     from . import fma_peak
 
     return {"sweep_select": cuda_sweep.sweep_select, "winner": cuda_winner.sweep_winner,
             "sweep_codes": cuda_codes.sweep_codes_cuda, "fma_chains": fma_peak.fma_chains,
-            "tables": cuda_tables.build_tables}
+            "tables": cuda_tables.build_tables, "segment_sum": cuda_segment.segment_sum}
 
 
 def counted(fn):

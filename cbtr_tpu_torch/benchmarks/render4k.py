@@ -16,10 +16,11 @@ image, rays sharded").  Two halves:
   (`multiprocess_render`), asserting that every rank holds the same image.
 
 Above 2 * 4 * rays * res bytes of splat weights (128^2 at 16.8M rays) the
-splat is an `index_add`, which on the card adds with atomics: two calls may
-differ in the last bits of a pixel, and the record says by how much
-(`image_max_abs_diff_between_calls_rel`).  --deterministic runs the render
-under `torch.use_deterministic_algorithms(True)` instead.
+splat adds into the pixels with the fixed-order segment sum
+(`ops/cuda_segment.py`), so two calls give the same image bit for bit
+(`deterministic`; `image_max_abs_diff_between_calls_rel` says by how much
+they differ).  --deterministic runs the render under
+`torch.use_deterministic_algorithms(True)` as a cross-check.
 
     python -m cbtr_tpu_torch.benchmarks.render4k --gpu [--res 4096]
         [--image-res 1024] [--chunk N] [--deterministic] [--out FILE]
@@ -104,7 +105,7 @@ def run_gpu(res: int = 4096, image_res: int = 1024, chunk: int = DEFAULT_CHUNK,
     return record
 
 
-def run_procs(nproc: int, res: int, device: str = "cpu") -> dict:
+def run_procs(nproc: int, res: int, device: str = "cuda") -> dict:
     """The sharded render over `nproc` processes (`multiprocess_render`),
     every rank's image the same."""
     from . import multiprocess_render

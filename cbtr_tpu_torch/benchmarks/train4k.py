@@ -11,10 +11,12 @@ Counterpart of benchmarks/train4k.py (the training half of BASELINE config
   from the same parameters (the first builds and warms); the record gives
   the second's wall time and rays/s, the loss, the control-point gradient's
   norm and the index's gradient, a checksum of the loss and gradients of
-  each call (`deterministic`: equal; the recompute's row gather adds its
-  backward with atomics on the card, and the record says by how much two
-  gradients differ), the kernels' launches a step, the chunk and the peak
-  device memory;
+  each call (`deterministic`: equal, as they are in the default mode: the
+  splat and the recompute's gather backward are fixed-order segment sums,
+  `ops/cuda_segment.py`; the record also gives by how much two gradients
+  differ), the kernels' launches a step, the chunk and the peak device
+  memory; --deterministic runs the step under
+  `torch.use_deterministic_algorithms(True)` as a cross-check;
 * --procs N --res R: the same step over N processes (`multiprocess_render
   --train-ortho`), the post-step parameters bit-identical on every rank.
 
@@ -98,7 +100,7 @@ def run_gpu(res: int = 4096, image_res: int = 128, chunk: int = DEFAULT_CHUNK,
     }
 
 
-def run_procs(nproc: int, res: int, device: str = "cpu") -> dict:
+def run_procs(nproc: int, res: int, device: str = "cuda") -> dict:
     """Two ortho-ray SGD steps over `nproc` processes, every rank's post-step
     parameters bit-identical (`multiprocess_render.launch` asserts it)."""
     from . import multiprocess_render

@@ -12,7 +12,9 @@ at the kernel's block size, and a digest of the wrapper's result.  Then the
 tables alone once more for K1, K2 and K3, with the device ops and the
 device-busy ms of one `prepare_inputs` under torch.profiler, and the
 fixed-lens train step (step size 0) of the headline and of the refined
-robot, with its device ops and device-busy ms under torch.profiler.
+robot, with its device ops and device-busy ms under torch.profiler, and a
+digest of that lens's forward render (the matrix-product splat) and of
+`intersect_rays`' fields (the recompute's forward).
 
 --against DIR names the root of another checkout of the repository, e.g.
 an earlier commit unpacked by `git archive <commit> | tar -x -C DIR` into an
@@ -23,8 +25,9 @@ points both checkouts have (the `prepare_inputs`, `launch` and wrappers of
 cuda_sweep, cuda_winner and cuda_codes, `tile_block_lists`,
 `make_train_step`, `profile_step._busy`), so neither build's C interface is
 assumed.  A row's `same_winners` says whether every run of it gave one
-digest.  Without --against this checkout runs once.  Last, the in-kernel
-cull alone (`cull_rows`, this checkout).
+digest (of the winners; for a step row, of the image and the fields).
+Without --against this checkout runs once.  Last, the in-kernel cull alone
+(`cull_rows`, this checkout).
 
 Every line names the card and its power limit.  It needs a CUDA device and
 nvcc; it raises without them.
@@ -184,7 +187,13 @@ def probe(device) -> dict:
         def run():
             return step(params, sc.start, sc.direction)
 
-        out[label] = {"step_ms": time_ms(run, windows=5, inner=2), **_busy(run, True)}
+        with torch.no_grad():
+            img = rd.render_lens_image(sc.patches, sc.refractive_index, sc.start,
+                                       sc.direction, sc.screen_plane, resolution=128)
+            hit = ix.intersect_rays(sc.patches, sc.start, sc.direction)
+        out[label] = {"digest": digest(img, *hit), "step_ms": time_ms(run, windows=5, inner=2),
+                      **_busy(run, True)}
+        del img, hit
         del sc, params, step
         torch.cuda.empty_cache()
     return out

@@ -8,7 +8,9 @@ rays, 128 x 128 image, zero target):
   events recorded around each call) and the host time to issue it (host
   clock, no synchronisation), mean over --runs forwards;
 * the forward with grad and the backward alone (CUDA events, median of
-  --runs), and the step's peak device memory;
+  --runs), the same stages inside the backward (the recompute re-run by a
+  chunk's checkpoint, the segment sums of the gathers' gradients), and the
+  step's peak device memory;
 * torch.profiler over one forward and one step: device ops run and the
   device's busy time (the union of their intervals), set against the
   unprofiled wall time; the same over one `prepare_inputs` (K1's tables);
@@ -38,6 +40,7 @@ import time
 import torch
 
 from ..models import lens_model, robot_lens_scene
+from ..ops import cuda_segment as sg
 from ..ops import cuda_sweep as cs
 from ..ops import intersect as ix
 from ..render import render as rd
@@ -52,6 +55,8 @@ STAGES = (
     ("k1_launch", cs, "launch"),
     ("screen_hits", rd, "screen_hits"),
     ("splat_bilinear", rd, "splat_bilinear"),
+    # the fixed-order sums: the scatter splat's, the gathers' gradients
+    ("segment_sum", sg, "_sum"),
 )
 
 
@@ -68,12 +73,15 @@ def stage_spans(cuda: bool):
             if cuda:
                 ev[0].record()
             t = time.perf_counter()
-            out = fn(*args, **kwargs)
-            host = time.perf_counter() - t
-            if cuda:
-                ev[1].record()
-            spans[label].append((ev, host))
-            return out
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                # also when fn raises: a checkpoint's recompute in the
+                # backward stops by an exception once it has what it needs
+                host = time.perf_counter() - t
+                if cuda:
+                    ev[1].record()
+                spans[label].append((ev, host))
         return timed
 
     for label, mod, attr in STAGES:
@@ -129,6 +137,45 @@ def _busy(fn, cuda: bool) -> dict:
     return {"device_ops": len(ranges), "busy_ms": busy / 1e3 if ranges else None}
 
 
+def _stage_means(per_run, cuda: bool) -> dict:
+    """{label: calls, mean device ms, mean host ms} over the runs' spans."""
+    return {label: {"calls": per_run[0][label][2],
+                    "device_ms": statistics.mean(r[label][0] for r in per_run) if cuda else None,
+                    "host_ms": statistics.mean(r[label][1] for r in per_run)}
+            for label, _, _ in STAGES}
+
+
+def _span_sums(spans, cuda: bool, skip=None) -> dict:
+    """{label: (device ms, host ms, calls)} of the spans' calls (after the
+    first skip[label] of each)."""
+    out = {}
+    for label, calls in spans.items():
+        calls = calls[(skip or {}).get(label, 0):]
+        out[label] = (sum(ev[0].elapsed_time(ev[1]) for ev, _ in calls) if cuda else None,
+                      sum(host for _, host in calls) * 1e3, len(calls))
+    return out
+
+
+def _run_spans(fn, cuda: bool) -> dict:
+    """`_span_sums` of one call of fn."""
+    with stage_spans(cuda) as spans:
+        fn()
+    _sync(cuda)
+    return _span_sums(spans, cuda)
+
+
+def _backward_spans(loss, cuda: bool) -> dict:
+    """`_span_sums` of the backward of loss() alone: the forward runs inside
+    the wrapped stages too, so that a chunk's checkpoint re-runs the wrapped
+    recompute, and its calls are left out."""
+    with stage_spans(cuda) as spans:
+        held = loss()
+        forward_calls = {label: len(calls) for label, calls in spans.items()}
+        held.backward()
+    _sync(cuda)
+    return _span_sums(spans, cuda, forward_calls)
+
+
 def run_profile(res: int = 512, runs: int = 5, device="cuda", chunk: int = 0) -> dict:
     dev = torch.device(device)
     cuda = dev.type == "cuda"
@@ -159,23 +206,7 @@ def run_profile(res: int = 512, runs: int = 5, device="cuda", chunk: int = 0) ->
     forward(), step(params, start, direction)          # warm-up (and the build)
     _sync(cuda)
 
-    per_run = []
-    for _ in range(runs):
-        with stage_spans(cuda) as spans:
-            forward()
-        _sync(cuda)
-        per_run.append({
-            label: (sum(ev[0].elapsed_time(ev[1]) for ev, _ in calls) if cuda else None,
-                    sum(host for _, host in calls) * 1e3, len(calls))
-            for label, calls in spans.items()})
-    stages = {}
-    for label, _, _ in STAGES:
-        dev_ms = [r[label][0] for r in per_run]
-        stages[label] = {
-            "calls": per_run[0][label][2],
-            "device_ms": statistics.mean(dev_ms) if cuda else None,
-            "host_ms": statistics.mean(r[label][1] for r in per_run),
-        }
+    stages = _stage_means([_run_spans(forward, cuda) for _ in range(runs)], cuda)
 
     forward_ms = _median_ms(forward, cuda, runs)
     step_ms = _median_ms(lambda: step(params, start, direction), cuda, runs)
@@ -185,6 +216,10 @@ def run_profile(res: int = 512, runs: int = 5, device="cuda", chunk: int = 0) ->
         held = {}
         fwd_grad.append(_median_ms(lambda: held.update(loss=loss()), cuda, 1))
         bwd.append(_median_ms(lambda: held["loss"].backward(), cuda, 1))
+    bwd_spans = []
+    for _ in range(runs):
+        params.zero_grad(set_to_none=True)
+        bwd_spans.append(_backward_spans(loss, cuda))
     peak_gib = None
     if cuda:
         torch.cuda.reset_peak_memory_stats(dev)
@@ -209,6 +244,7 @@ def run_profile(res: int = 512, runs: int = 5, device="cuda", chunk: int = 0) ->
         "rays": int(start.shape[0]), "patches": patches.num_patches, "runs": runs,
         "chunk": chunk,
         "stages_forward": stages,
+        "stages_backward": _stage_means(bwd_spans, cuda),
         "forward_ms": forward_ms, "step_ms": step_ms,
         "forward_with_grad_ms": statistics.median(fwd_grad),
         "backward_ms": statistics.median(bwd),

@@ -6,12 +6,11 @@ atomically every `checkpoint_every` steps; a re-invocation with the same
 `checkpoint_dir` resumes from the highest-step checkpoint.  The checkpoint
 files are the JAX package's (`utils/checkpoint.py`), so a fit started by
 one package resumes in the other.  A killed and resumed SGD fit ends on
-the same parameters as an uninterrupted one bit for bit on the CPU, and on
-the card under `torch.use_deterministic_algorithms(True)`.  With torch's
-default backward on the card the gather's atomic accumulation moves the
-last bits of a gradient, and the fit's trajectory amplifies that: two
-uninterrupted runs part too (tests/test_torch_fit.py, chip_smoke.py
-phase j).
+the same parameters as an uninterrupted one bit for bit, on the CPU and on
+the card in torch's default mode: the gradient is reproducible, since the
+recompute's gather adds its backward with the fixed-order segment sum
+(`ops/cuda_segment.py`) and not with atomics (tests/test_torch_fit.py,
+chip_smoke.py phase j).
 """
 from __future__ import annotations
 

@@ -41,6 +41,7 @@ from torch.utils.checkpoint import checkpoint
 from .. import geom
 from ..config import DEFAULT as CFG
 from ..bezier.patches import BezierPatches, interpolate, patch_normal
+from .cuda_segment import gather_rows
 
 # BezierIntersection::What (reference/bezierTriangle.h:8-14)
 WHAT_FOLLOW_SIDE0 = 0
@@ -283,10 +284,11 @@ def recompute_winner(patches: BezierPatches, start, direction, any_hit, win,
     nonzero count means the sweep and the recompute disagree on arithmetic.
     """
     # ONE [R, 60] gather from the packed float table instead of six per-leaf
-    # gathers (and one backward scatter-add instead of six)
+    # gathers; its backward is one fixed-order segment sum of the rows into
+    # the table (cuda_segment.gather_rows), not six atomic scatter-adds
     idx = win.clamp_min(0).to(torch.int64)
     rows = BezierPatches.from_packed_f32(
-        torch.index_select(patches.packed_f32(), 0, idx),
+        gather_rows(patches.packed_f32(), idx),
         torch.zeros(idx.shape + (3,), dtype=torch.int32, device=idx.device),
     )
     what_w, dist_w, pt, n, b, cos_w = patch_candidates(rows, start, direction, False)

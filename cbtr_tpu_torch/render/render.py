@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from .. import geom
+from ..ops.cuda_segment import segment_sum
 from ..ops.intersect import WHAT_INTERSECT, intersect_rays
 from ..optics.lens import trace_through_lens
 
@@ -37,7 +38,7 @@ def screen_hits(start, direction, screen_plane):
 
 
 # Use the outer-product splat while the two [N, res] axis-weight matrices fit
-# comfortably in device memory; above that fall back to scatter-adds.
+# comfortably in device memory; above that add into the pixels by segment sum.
 _SPLAT_MATMUL_MAX_BYTES = 1_200_000_000
 
 
@@ -73,7 +74,9 @@ def splat_bilinear(points2d, weights, extent, resolution: int):
     * outer product (default): the footprint is separable,
       img[i,j] = sum_r w_r * wx_r[i] * wy_r[j], i.e. one [res,N] @ [N,res]
       product of per-axis weight matrices; its transpose is again a product;
-    * scatter-add when the [N, res] weight matrices would exceed ~1.2 GB.
+    * a fixed-order segment sum (`ops.cuda_segment.segment_sum`, the
+      scatter-add of the JAX package) when the [N, res] weight matrices
+      would exceed ~1.2 GB.
     """
     res = resolution
     xy = (points2d / (2.0 * extent) + 0.5) * res - 0.5
@@ -84,8 +87,11 @@ def splat_bilinear(points2d, weights, extent, resolution: int):
         ay = _splat_axis_weights(xy[:, 1], res)
         return ax.T @ ay
 
+    # the four passes' contributions, pass by pass (00, 01, 10, 11) and point
+    # by point, summed into the pixels in that order by one fixed-order
+    # segment sum (on the CPU the left fold of four sequential index_adds)
     x0i, frac = _floor_index(xy, res)
-    img = torch.zeros((res * res,), dtype=torch.float32, device=points2d.device)
+    pixels, contributions = [], []
     for dx in (0, 1):
         for dy in (0, 1):
             wx = frac[:, 0] if dx else 1.0 - frac[:, 0]
@@ -93,10 +99,12 @@ def splat_bilinear(points2d, weights, extent, resolution: int):
             ix = x0i[:, 0] + dx
             iy = x0i[:, 1] + dy
             inside = (ix >= 0) & (ix < res) & (iy >= 0) & (iy < res)
-            w = torch.where(inside, weights * wx * wy, 0.0)
-            flat = ix.clamp(0, res - 1) * res + iy.clamp(0, res - 1)
-            img = img.index_add(0, flat, w)
-    return img.reshape(res, res)
+            contributions.append(torch.where(inside, weights * wx * wy, 0.0))
+            pixels.append((ix.clamp(0, res - 1) * res + iy.clamp(0, res - 1))
+                          .to(torch.int32))
+    # the per-pass tensors go before the sort (at 16.8 M rays, 0.5 GB)
+    pixels, contributions = torch.cat(pixels), torch.cat(contributions)[:, None]
+    return segment_sum(pixels, contributions, res * res).reshape(res, res)
 
 
 def render_lens_image(patches, refractive_index, start, direction, screen_plane,

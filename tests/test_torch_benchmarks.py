@@ -226,7 +226,7 @@ def test_emitter4k_matches_jax(robot):
     assert img_j.sum() > 10
     np.testing.assert_allclose(rec["flux_per_ray"]["device_path"] * 2048, img_j.sum(),
                                rtol=1e-4)
-    assert rec["device_path"]["deterministic"]
+    assert rec["device_path"]["deterministic"] and rec["train_step"]["deterministic"]
     assert rec["host_path"]["rays"] == 2048 and not rec["host_path"]["cut"]
     assert rec["train_step"]["loss"] > 0 and rec["train_step"]["grad_cp_norm"] > 0
     assert 0.0 <= rec["flux_per_ray_agreement"] < 1.0

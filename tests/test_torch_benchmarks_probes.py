@@ -210,6 +210,21 @@ def test_table_prints_a_dash_for_what_is_missing(tmp_path):
     assert "| — | NVIDIA H100 80GB HBM3, 700.00 W |" in card
 
 
+def test_table_takes_records_in_pr_order(tmp_path):
+    """pr10 comes after pr9 (a plain sort of the names puts it first): the
+    BENCH columns run pr9, pr10, and the large-scale row cites pr10."""
+    _wrapped_record(tmp_path, "BENCH_pr9.json", _BENCH)
+    _wrapped_record(tmp_path, "BENCH_pr10.json", _BENCH)
+    for pr, wall in (("pr9", 0.835), ("pr10", 0.733)):
+        (tmp_path / f"RENDER4K_{pr}.json").write_text(json.dumps(
+            {"rays": 16777216, "wall_s": wall, "rays_per_s": 16777216 / wall,
+             "chunk": 1048576, "peak_memory_gib": 3.0, "card": "H100"}))
+    table = gen_perf_table.build_table(str(tmp_path))
+    assert table.splitlines()[0] == "| metric | pr9 | pr10 |"
+    assert "0.733 s wall" in table and "RENDER4K_pr10.json" in table
+    assert "0.835 s wall" not in table
+
+
 def test_check_tells_a_stale_table_from_a_fresh_one(tmp_path):
     """--check exits 1 on a stale table and rewrites nothing; a run writes the
     table between the markers only (the TPU record's BENCH block and the

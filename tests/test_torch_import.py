@@ -16,6 +16,8 @@ import cbtr_tpu_torch.ops.cuda_sweep as cs
 import cbtr_tpu_torch.ops.cuda_winner as cw
 import cbtr_tpu_torch.ops.cuda_codes as cc
 import cbtr_tpu_torch.ops.cuda_tables as ct
+import cbtr_tpu_torch.ops.cuda_segment as sg
+import cbtr_tpu_torch.harness.determinism
 import cbtr_tpu_torch.benchmarks.fma_peak as fp
 import cbtr_tpu_torch.bench
 import cbtr_tpu_torch.harness.reference_tracer
@@ -79,7 +81,7 @@ assert not any(m == "cbtr_tpu" or m.startswith("cbtr_tpu.") for m in sys.modules
 assert cs._libraries == {}       # no kernel library built or loaded
 assert cs.sweep_select.launches == 0 and cw.sweep_winner.launches == 0
 assert cc.sweep_codes_cuda.launches == 0 and fp.fma_chains.launches == 0
-assert ct.build_tables.launches == 0
+assert ct.build_tables.launches == 0 and sg.segment_sum.launches == 0
 assert not dist.is_initialized()  # importing the parallel layer starts no group
 assert nat._lib is None and nat.build_error() is None   # no g++ run, nothing loaded
 if os.path.exists("/proc/self/maps"):

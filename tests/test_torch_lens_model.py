@@ -210,10 +210,10 @@ def test_one_sgd_step_matches_jax(robot_train):
 
 
 def test_gradient_is_bit_reproducible(robot_train):
-    """Two gradients at one fixed lens are bit-equal on the CPU, where the
-    recompute's row gather adds its backward in ray order.  On the GPU that
-    backward accumulates with atomics, and chip_smoke.py bounds the
-    difference instead (measured max 2e-3 of 2.2e4 at the headline shape)."""
+    """Two gradients at one fixed lens are bit-equal.  The recompute's row
+    gather adds its backward with the fixed-order segment sum
+    (`ops/cuda_segment.py`): its plain version here, its kernel on the card,
+    where chip_smoke.py holds the headline gradient bit-equal too."""
     params, start, direction, screen, target = robot_train["port"]
     grads = []
     for _ in range(2):

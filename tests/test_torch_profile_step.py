@@ -21,9 +21,10 @@ def test_profile_step_sees_every_stage_on_cpu():
     calls = {label: s["calls"] for label, s in result["stages_forward"].items()}
     # two refractions, each one winner search and one recompute; CPU tensors
     # run the kernel's plain twin, so K1's tables and launch are not reached
+    # the splat is the matrix product at this size: no segment sum
     assert calls == {"trace_through_lens": 1, "recompute_winner": 2,
                      "winner_search": 2, "k1_tables": 0, "k1_launch": 0,
-                     "screen_hits": 1, "splat_bilinear": 1}
+                     "screen_hits": 1, "splat_bilinear": 1, "segment_sum": 0}
     assert all(s["device_ms"] is None for s in result["stages_forward"].values())
     assert result["step_peak_gib"] is None
     assert result["forward_profile"]["busy_share"] is None
@@ -44,3 +45,15 @@ def test_profile_step_chunks_the_rays_on_cpu():
     assert calls["winner_search"] == 2 * 4 and calls["recompute_winner"] == 2 * 4, calls
     assert calls["screen_hits"] == 1 and calls["splat_bilinear"] == 1, calls
     assert 0.0 < result["listed_fraction"] <= 1.0
+
+
+def test_profile_step_times_the_backward_stages_on_cpu():
+    """The backward's stages: each chunk's checkpoint re-runs its recompute
+    (stopped early by an exception, still timed) and each gather's gradient
+    is one segment sum; the forward's calls are not counted again."""
+    result = profile_step.run_profile(res=16, runs=1, device="cpu", chunk=64)
+    calls = {label: s["calls"] for label, s in result["stages_backward"].items()}
+    assert calls["recompute_winner"] == 2 * 4 and calls["segment_sum"] == 2 * 4, calls
+    assert calls["winner_search"] == 0 and calls["splat_bilinear"] == 0, calls
+    assert result["stages_backward"]["segment_sum"]["host_ms"] > 0.0
+    assert ix.recompute_winner.__name__ == "recompute_winner"
