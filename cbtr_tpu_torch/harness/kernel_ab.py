@@ -1,6 +1,7 @@
 """Two checkouts of the port timed against each other on the card, in turns.
 
     python -m cbtr_tpu_torch.harness.kernel_ab [--against DIR] [--rounds N]
+                                               [--segment-sum-only]
 
 `probe` times a checkout's winner search at the main path's shapes: K1 and
 K2 (262,144 x 450 at both refractions of the headline step, 262,144 x 1800
@@ -14,7 +15,11 @@ device-busy ms of one `prepare_inputs` under torch.profiler, and the
 fixed-lens train step (step size 0) of the headline and of the refined
 robot, with its device ops and device-busy ms under torch.profiler, and a
 digest of that lens's forward render (the matrix-product splat) and of
-`intersect_rays`' fields (the recompute's forward).
+`intersect_rays`' fields (the recompute's forward).  First, the segment sum
+(`cuda_segment.launch`) at the headline recompute's backward, a 4K chunk's,
+a 4K render's splat and a seeded splat (`segment_sum_inputs`): a digest of
+its output, its time, device ops, busy ms and peak memory.  With
+--segment-sum-only the probe stops there (and the cull rows are left out).
 
 --against DIR names the root of another checkout of the repository, e.g.
 an earlier commit unpacked by `git archive <commit> | tar -x -C DIR` into an
@@ -22,10 +27,11 @@ ignored directory.  Each side then runs in a fresh process from its own
 root, in turns DIR, this, this, DIR (`--rounds` times).  That process
 imports the root's own package and reaches the kernels only through entry
 points both checkouts have (the `prepare_inputs`, `launch` and wrappers of
-cuda_sweep, cuda_winner and cuda_codes, `tile_block_lists`,
+cuda_sweep, cuda_winner and cuda_codes, `cuda_segment.launch`, `tile_block_lists`,
 `make_train_step`, `profile_step._busy`), so neither build's C interface is
 assumed.  A row's `same_winners` says whether every run of it gave one
-digest (of the winners; for a step row, of the image and the fields).
+digest (of the winners; for a step row, of the image and the fields; for a
+segment-sum row, of its output).
 Without --against this checkout runs once.  Last, the in-kernel cull alone
 (`cull_rows`, this checkout).
 
@@ -80,7 +86,7 @@ STEP_SCENES = (("headline step, robot 512^2", {}), ("refined step, robot 512^2",
 
 # `python -c` program of the probe process: runs this file, with --probe,
 # against the package of its working directory
-_RUN_PROBE = ("import runpy, sys; sys.argv = [sys.argv[1], '--probe']; "
+_RUN_PROBE = ("import runpy, sys; sys.argv = [sys.argv[1], '--probe'] + sys.argv[2:]; "
               "runpy.run_path(sys.argv[0], run_name='__main__')")
 
 
@@ -145,12 +151,146 @@ def _call_times(prepare, launcher, wrapper, block_p, patches, start, direction) 
                                 windows=5)}
 
 
-def probe(device) -> dict:
+def segment_sum_inputs(device) -> dict:
+    """{label: (ids, vals, num_segments)}: the segment sum at the main path's
+    shapes, made the same in every checkout: the headline recompute's
+    backward (K1's winners of the robot 512^2 grid, misses at patch 0, 60
+    seeded normal columns), a 4K chunk's (the first 1,048,576 rays of the
+    4096^2 grid), the splat of a 4K render (its pixel ids and contributions,
+    captured) and a seeded splat of 67,108,864 contributions into 1024^2
+    with 22 % of them on the centre pixel (as the 4K render's dead rays)."""
+    from cbtr_tpu_torch.models import scene_ortho_grid
+    from cbtr_tpu_torch.parallel.multihost import multihost_mesh, render_multihost_ortho
+
+    gen = torch.Generator(device=device).manual_seed(0)
+    sc = robot_lens_scene(res=512, device=device)
+    P = sc.patches.num_patches
+    win = cs.sweep_select(sc.patches, sc.start, sc.direction)[1].clamp_min(0).to(torch.int64)
+    grid = scene_ortho_grid(4096)
+    s4, d4 = grid.rays_at(torch.arange(1 << 20, device=device))
+    win4 = cs.sweep_select(sc.patches, s4, d4)[1].clamp_min(0).to(torch.int64)
+    captured, real = [], rd.segment_sum
+
+    def capture(ids, vals, n):
+        captured.append((ids, vals, n))
+        return real(ids, vals, n)
+
+    rd.segment_sum = capture
+    try:
+        with torch.no_grad():
+            render_multihost_ortho(multihost_mesh(), sc.patches, sc.refractive_index, grid,
+                                   sc.screen_plane, resolution=1024, chunk_size=1 << 20)
+    finally:
+        rd.segment_sum = real
+    (splat,) = captured
+    n, pixels = 1 << 26, 1 << 20
+    hot = torch.rand(n, generator=gen, device=device) < 0.22
+    seeded = torch.where(hot, pixels // 2 + 512,
+                         torch.randint(0, pixels, (n,), generator=gen, device=device))
+    return {
+        "segment_sum 262,144 x 60 -> 450 (headline recompute)":
+            (win, torch.randn((win.numel(), 60), generator=gen, device=device), P),
+        "segment_sum 1,048,576 x 60 -> 450 (4K chunk recompute)":
+            (win4, torch.randn((win4.numel(), 60), generator=gen, device=device), P),
+        "segment_sum 67,108,864 x 1 -> 1024^2 (4K render's splat)": splat,
+        "segment_sum 67,108,864 x 1 -> 1024^2 (seeded, hot centre pixel)":
+            (seeded.to(torch.int32), torch.randn((n, 1), generator=gen, device=device), pixels),
+    }
+
+
+# the segment sum's kernels (csrc/segment_sum.cu), by the names
+# `device_kernels` files their device time under
+SEGMENT_KERNELS = ("Memset", "tile_histogram", "scan_digits", "tile_scatter", "segment_bounds",
+                   "scan_nodes", "fold_values", "fold_rows")
+
+
+# the kernels every segment sum of this checkout launches (a fold at each level)
+SEGMENT_STAGES = ("Memset", "tile_histogram", "scan_digits", "tile_scatter", "scan_nodes",
+                  "fold_")
+
+
+def _this_package() -> bool:
+    """Whether the imported package is this file's checkout's (and not the
+    one a probe process of `--against` runs this file against)."""
+    return (os.path.dirname(os.path.abspath(cbtr_tpu_torch.__file__))
+            == os.path.join(THIS_ROOT, "cbtr_tpu_torch"))
+
+
+def device_kernels(fn, stages=(), tries: int = 12):
+    """(device ops, busy ms, {kernel: device ms}, sessions) of one call of fn
+    under torch.profiler (busy: the union of the ops' intervals); the
+    segment sum's kernels by name (SEGMENT_KERNELS), the rest by the
+    profiler's.  The profiler can drop device records, so a session counts
+    only when it saw some device op, as many as an earlier session did, and
+    a kernel of each name in `stages`; up to `tries` sessions (`sessions`:
+    how many it took), then raises with the counts it saw."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    seen = []
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        ops = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        named = all(any(s in e.name for e in ops) for s in stages)
+        if ops and len(ops) in seen and named:
+            break
+        seen.append(len(ops))
+    else:
+        raise RuntimeError(f"torch.profiler gave no two sessions with the same device ops "
+                           f"and the stages {stages} in {tries} sessions (device ops: {seen})")
+    per, busy, end = {}, 0.0, float("-inf")
+    for e in sorted(ops, key=lambda e: e.time_range.start):
+        a, b = e.time_range.start, e.time_range.end
+        key = next((k for k in SEGMENT_KERNELS if k in e.name), e.name[:40])
+        per[key] = per.get(key, 0.0) + (b - a) / 1e3
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return len(ops), busy / 1e3, per, len(seen) + 1
+
+
+def segment_sum_rows(device) -> dict:
+    """{label: numbers}: `cuda_segment.launch` at `segment_sum_inputs`' shapes:
+    a digest of its output, its time, device ops, busy ms and device ms by
+    kernel (`device_kernels`; the stages are checked by name in this
+    checkout only: another builds the sum from other kernels) and its peak
+    memory above its inputs."""
+    from cbtr_tpu_torch.ops import cuda_segment as sg
+
+    stages = SEGMENT_STAGES if _this_package() else ()
+    out = {}
+    for label, (ids, vals, S) in segment_sum_inputs(device).items():
+        def call():
+            return sg.launch(ids, vals, S)
+
+        row = {"digest": digest(call())}
+        big = ids.numel() >= 1 << 24
+        row["ms"] = time_ms(call, windows=5 if big else 7, inner=1 if big else 3)
+        (row["device_ops"], row["busy_ms"], row["kernels_ms"],
+         row["profiler_sessions"]) = device_kernels(call, stages)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        call()
+        torch.cuda.synchronize()
+        row["peak_gib"] = (torch.cuda.max_memory_allocated() - before) / 2**30
+        out[label] = row
+    torch.cuda.empty_cache()
+    return out
+
+
+def probe(device, segment_sum_only: bool = False) -> dict:
     """{label: numbers} of this process's package at every shape (module
-    docstring); scenes are built one at a time."""
+    docstring), or at the segment sum's only; scenes are built one at a
+    time."""
     from cbtr_tpu_torch.harness.profile_step import _busy
 
-    out = {}
+    out = segment_sum_rows(device)
+    if segment_sum_only:
+        return out
     for label, kw, refraction, kernel in WINNER_SHAPES:
         sc = robot_lens_scene(device=device, **kw)
         s, d = (sc.start, sc.direction) if refraction == 1 else second_pass_rays(sc)
@@ -199,10 +339,11 @@ def probe(device) -> dict:
     return out
 
 
-def run_checkout(root: str) -> dict:
+def run_checkout(root: str, segment_sum_only: bool = False) -> dict:
     """`probe` in a fresh process that imports the package of the checkout
     at `root`; raises if it fails."""
-    proc = subprocess.run([sys.executable, "-c", _RUN_PROBE, os.path.abspath(__file__)],
+    extra = ["--segment-sum-only"] if segment_sum_only else []
+    proc = subprocess.run([sys.executable, "-c", _RUN_PROBE, os.path.abspath(__file__), *extra],
                           cwd=root, capture_output=True, text=True, timeout=1800)
     if proc.returncode != 0:
         raise RuntimeError(f"the probe of {root} failed ({proc.returncode}):\n"
@@ -227,14 +368,15 @@ def merge(results) -> list[dict]:
     return list(rows.values())
 
 
-def compare_checkouts(against: str = "", rounds: int = 1) -> list[dict]:
+def compare_checkouts(against: str = "", rounds: int = 1,
+                      segment_sum_only: bool = False) -> list[dict]:
     """This checkout, alone or in turns with the one at `against` (module
     docstring), merged by `merge`."""
-    if not against:
-        return merge([("this", run_checkout(THIS_ROOT))])
-    order = [("against", against), ("this", THIS_ROOT), ("this", THIS_ROOT),
-             ("against", against)] * rounds
-    return merge([(side, run_checkout(root)) for side, root in order])
+    order = [("this", THIS_ROOT)]
+    if against:
+        order = [("against", against), ("this", THIS_ROOT), ("this", THIS_ROOT),
+                 ("against", against)] * rounds
+    return merge([(side, run_checkout(root, segment_sum_only)) for side, root in order])
 
 
 def cull_rows(device):
@@ -267,6 +409,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--against", default="", help="root of another checkout")
     ap.add_argument("--rounds", type=int, default=1, help="turns of 4 runs each")
+    ap.add_argument("--segment-sum-only", action="store_true",
+                    help="time the segment sum's rows alone")
     ap.add_argument("--probe", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.probe:
@@ -277,11 +421,13 @@ def main(argv=None) -> int:
     # the splat is an f32 matrix product: TF32 would change the image
     torch.backends.cuda.matmul.allow_tf32 = False
     if args.probe:
-        print(json.dumps(probe(torch.device("cuda", 0))), flush=True)
+        print(json.dumps(probe(torch.device("cuda", 0), args.segment_sum_only)), flush=True)
         return 0
     name = card()
-    for row in compare_checkouts(args.against, args.rounds):
+    for row in compare_checkouts(args.against, args.rounds, args.segment_sum_only):
         print(f"[ab] {name} | {json.dumps(row)}", flush=True)
+    if args.segment_sum_only:
+        return 0
     for row in cull_rows(torch.device("cuda", 0)):
         print(f"[ab] {name} | {json.dumps(row)}", flush=True)
     return 0

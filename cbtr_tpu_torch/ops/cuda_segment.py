@@ -26,13 +26,18 @@ image centre.
 and calls `segment_sum_reference`, which repeats the order, for CPU
 tensors; there is no fallback from one to the other, and a failed build or
 launch raises.  `segment_sum.launches` counts the kernel's launches (one a
-sum, whatever its number of levels).  The rows are grouped by a stable
-`torch.sort` of int32 keys, which is deterministic; the hand-written part is
-the fixed-order reduction.
+sum, whatever its number of stages).  On the card the rows are grouped by
+the kernel's own stable radix sort on the bits the segment count needs, and
+the offsets and node bases are computed on the device, all enqueued by one
+C call into one workspace sized on the host (`_workspace_plan`): the CUDA
+path calls no `torch.sort`, `searchsorted` or `cumsum` and reads nothing
+back.  The plain version groups by a stable `torch.sort` (`_grouping`).
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 
 import torch
 from torch.autograd.function import once_differentiable
@@ -89,6 +94,126 @@ def _max_nodes(n_rows: int, num_segments: int, level: int) -> int:
     return n_rows // (below * GROUP) + taking + 1
 
 
+# the kernel's radix sort (csrc/segment_sum.cu): tiles of TILE keys, each
+# ranked by SORT_WARPS warps over runs of 32 x SORT_ITEMS keys in rounds of
+# 32 lanes; a histogram block counts `subs` tiles, more as N grows (up to
+# MAX_SUBS, keeping at least _MIN_HISTOGRAM_BLOCKS blocks: the card has 132
+# SMs); digits of at most MAX_DIGIT_BITS bits; the scans take SCAN_TILE
+# elements a block
+SORT_WARPS = 8
+SORT_ITEMS = 16
+TILE = SORT_WARPS * 32 * SORT_ITEMS
+MAX_SUBS = 8
+_MIN_HISTOGRAM_BLOCKS = 512
+MAX_DIGIT_BITS = 11
+SCAN_TILE = 8192
+_ALIGN = 256
+_INT32_MAX = 2**31 - 1
+
+# the fields of the plan the C entry point reads (csrc/segment_sum.cu Field),
+# in order: byte offsets into the workspace, and the sizes they were made for
+PLAN_FIELDS = (
+    "passes", "width0", "width1", "width2", "tiles", "subs", "levels",
+    "nodes0", "nodes1", "nodes2", "nodes3",
+    "memset", "tickets", "status0", "status1", "status2", "status3",
+    "scan_blocks0", "scan_blocks1", "scan_blocks2", "scan_blocks3",
+    "counts", "offsets", "node_bases", "keys0", "payload0", "keys1", "payload1",
+    "scratch0", "scratch1",
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class WorkspacePlan:
+    """The kernel's stages and workspace for one (N, S, C), from the sizes
+    alone.  bits: ceil(log2(S + 1)), the key bits (a dropped row is keyed
+    S); widths: the digit bits of each sort pass; tiles: ceil(N / TILE);
+    subs: the tiles a histogram block counts; levels and max_nodes: the
+    tree's levels and a bound on each level's nodes (the fold's grids);
+    scan_blocks: blocks of each digit scan, then of the node scan; fields:
+    PLAN_FIELDS' values; nbytes: the workspace."""
+    bits: int
+    widths: tuple
+    tiles: int
+    subs: int
+    levels: int
+    max_nodes: tuple
+    scan_blocks: tuple
+    fields: dict
+    nbytes: int
+
+    def as_c_array(self):
+        return (ctypes.c_longlong * len(PLAN_FIELDS))(*(self.fields[f] for f in PLAN_FIELDS))
+
+
+@functools.lru_cache(maxsize=64)
+def _workspace_plan(n_rows: int, num_segments: int, columns: int) -> WorkspacePlan:
+    """The plan of one segment sum of n_rows x columns values into
+    num_segments >= 1 segments (a pure function of the sizes: nothing is
+    read from the device).  The workspace holds, each at a 256-byte aligned
+    offset: the scans' tickets and look-back words (the only bytes the
+    kernel clears), the digit counts [digits x tiles] of the widest pass,
+    the offsets [S + 1] and node bases [levels x (S + 1)] (int32), the keys
+    and payloads of the sort (keys only in a multi-pass sort: its last pass
+    leaves the sorted keys for the offsets; two buffers of each beyond one
+    pass), and two scratch buffers of level partials when the tree has
+    more than one level.  Raises ValueError above the int32 positions the
+    kernel keeps (2^31 - 1 rows, node ids, segments)."""
+    N, S, C = int(n_rows), int(num_segments), int(columns)
+    if N < 0 or C < 1:
+        raise ValueError(f"need n_rows >= 0 and columns >= 1, got {N}, {C}")
+    if N > _INT32_MAX:
+        raise ValueError(f"the segment-sum kernel keeps int32 row positions: {N} rows "
+                         f"exceed 2^31 - 1")
+    if not 1 <= S < _INT32_MAX:
+        raise ValueError(f"num_segments must lie in [1, 2^31 - 1), got {S}")
+    bits = S.bit_length()                      # ceil(log2(S + 1))
+    passes = -(-bits // MAX_DIGIT_BITS)
+    widths = tuple(bits // passes + (1 if p < bits % passes else 0) for p in range(passes))
+    tiles = -(-N // TILE)
+    subs = max(1, min(MAX_SUBS, tiles // _MIN_HISTOGRAM_BLOCKS))
+    levels = _levels(N)
+    max_nodes = tuple(min(_max_nodes(N, S, k), max(N, 1)) for k in range(levels))
+    if sum(max_nodes) + levels > _INT32_MAX or levels * (S + 1) > _INT32_MAX:
+        raise ValueError(f"{N} rows into {S} segments exceed the kernel's int32 node ids")
+    scans = [(1 << w) * tiles for w in widths] + [levels * (S + 1)]
+    scan_blocks = tuple(-(-n // SCAN_TILE) for n in scans)
+
+    fields = dict.fromkeys(PLAN_FIELDS, 0)
+    fields.update(passes=passes, tiles=tiles, subs=subs, levels=levels)
+    for p, w in enumerate(widths):
+        fields[f"width{p}"] = w
+    for k, m in enumerate(max_nodes):
+        fields[f"nodes{k}"] = m
+    for q, b in enumerate(scan_blocks):
+        fields[f"scan_blocks{q}"] = b
+    end = 0
+
+    def take(name, nbytes):
+        nonlocal end
+        fields[name] = end
+        end += -(-nbytes // _ALIGN) * _ALIGN
+
+    take("tickets", 4 * 4)
+    for q, b in enumerate(scan_blocks):
+        take(f"status{q}", 8 * b)
+    fields["memset"] = end
+    take("counts", 4 * (1 << max(widths)) * tiles)
+    take("offsets", 4 * (S + 1))
+    take("node_bases", 4 * levels * (S + 1))
+    buffers = 1 if passes == 1 else 2
+    for b in range(buffers):
+        if passes > 1:
+            take(f"keys{b}", 4 * N)
+        take(f"payload{b}", 4 * N)
+    for b in range(2):
+        take(f"scratch{b}", 4 * max_nodes[0] * C if levels > 1 else 0)
+    # a buffer the stages never use points at the end (its size is 0)
+    for name in ("keys0", "keys1", "payload1"):
+        if fields[name] == 0:
+            fields[name] = end
+    return WorkspacePlan(bits, widths, tiles, subs, levels, max_nodes, scan_blocks, fields, end)
+
+
 def _check(ids, vals, num_segments: int):
     if vals.dim() != 2:
         raise ValueError(f"vals must be [N, C], got {tuple(vals.shape)}")
@@ -141,6 +266,38 @@ def segment_sum_reference(ids, vals, num_segments: int):
     return out
 
 
+# cbtr_segment_sum's parameters: ids, id bytes, vals, out, workspace, N, S,
+# C, plan, the stream
+_ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+             ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_longlong),
+             ctypes.c_void_p]
+
+
+def _enqueue(lib, ids, vals, num_segments: int, stream):
+    """What `launch` does after its checks, on vals' device: the zeroed
+    output, one workspace of the plan's size and one call of the C entry
+    point, which enqueues every stage on `stream`.  Returns (out, whether it
+    called the library): nothing to add for N, C or S of 0.  Int32 and int64
+    ids go as they are (other integer types are widened first)."""
+    N, C = vals.shape
+    S = num_segments
+    out = torch.zeros((S, C), dtype=torch.float32, device=vals.device)
+    if N == 0 or C == 0 or S == 0:
+        return out, False
+    plan = _workspace_plan(N, S, C)
+    if ids.dtype not in (torch.int32, torch.int64):
+        ids = ids.to(torch.int64)
+    ids, vals = ids.contiguous(), vals.contiguous()
+    workspace = torch.empty(plan.nbytes, dtype=torch.uint8, device=vals.device)
+    rc = lib.cbtr_segment_sum(ids.data_ptr(), ids.element_size(), vals.data_ptr(),
+                              out.data_ptr(), workspace.data_ptr(), N, S, C,
+                              plan.as_c_array(), stream)
+    if rc != 0:
+        raise RuntimeError(f"segment-sum kernel launch failed: "
+                           f"{lib.cbtr_cuda_error_string(rc).decode()} ({rc})")
+    return out, True
+
+
 def launch(ids, vals, num_segments: int):
     """One segment sum on the kernel, on the current stream: vals an f32
     CUDA tensor [N, C], ids an integer tensor [N] on its device."""
@@ -154,32 +311,12 @@ def launch(ids, vals, num_segments: int):
                          "on the CPU its plain version computes the same function")
     if vals.dtype != torch.float32:
         raise ValueError(f"the segment-sum kernel adds f32 values, got {vals.dtype}")
-    N, C = vals.shape
-    S = num_segments
-    out = torch.zeros((S, C), dtype=torch.float32, device=vals.device)
-    if N == 0 or C == 0 or S == 0:
-        return out
-    vals = vals.contiguous()
-    _, perm, offsets = _grouping(ids, S)
-    levels = _levels(N)
-    bases = _node_bases(offsets[1:] - offsets[:-1], levels)
-    max_nodes = [_max_nodes(N, S, k) for k in range(levels)]
-    scratch_items = max_nodes[0] * C if levels > 1 else 1
-    scratch = torch.empty((2, scratch_items), dtype=torch.float32, device=vals.device)
-
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib = cs.load_library("segment_sum", [vp] * 7 + [ci] * 3
-                          + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_longlong, vp])
-    nodes = (ctypes.c_longlong * levels)(*max_nodes)
+    lib = cs.load_library("segment_sum", _ARGTYPES)
     with torch.cuda.device(vals.device):
-        rc = lib.cbtr_segment_sum(
-            vals.data_ptr(), perm.data_ptr(), offsets.data_ptr(), bases.data_ptr(),
-            scratch[0].data_ptr(), scratch[1].data_ptr(), out.data_ptr(), S, C, levels,
-            nodes, scratch_items, torch.cuda.current_stream(vals.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"segment-sum kernel launch failed: "
-                           f"{lib.cbtr_cuda_error_string(rc).decode()} ({rc})")
-    segment_sum.launches += 1
+        out, launched = _enqueue(lib, ids, vals, num_segments,
+                                 torch.cuda.current_stream(vals.device).cuda_stream)
+    if launched:
+        segment_sum.launches += 1
     return out
 
 

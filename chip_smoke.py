@@ -187,14 +187,21 @@ Phases:
      the robot 1024^2 and on the first 1,048,576 rays of the 4K grid, the
      rays that differ and the side the unculled reference takes
   s  the segment-sum kernel against its plain version (`torch.equal`, no
-     -0.0 out) at the main path's shapes: the headline recompute backward
-     (262,144 x 60 into 450 patches, phase 2's K1 winners, misses at patch
-     0), a 4K chunk's (the first 1,048,576 rays of the 4096^2 grid), the 4K
-     splat's (the 67,108,864 pixel ids and contributions a 4K render hands
-     it, into 1024^2) and edge shapes (empty segments, GROUP, GROUP + 1,
-     GROUP^2 and GROUP^2 + 1 rows, C = 60 and 1); each one's time (and its
-     sort's) beside torch's `index_add_` (atomic, and in the deterministic
-     mode), the plain version's and its bound
+     -0.0 out, and a second call bit-equal) at the main path's shapes: the
+     headline recompute backward (262,144 x 60 into 450 patches, phase 2's
+     K1 winners, misses at patch 0; int64 and int32 ids), a 4K chunk's (the
+     first 1,048,576 rays of the 4096^2 grid), the 4K splat's (the
+     67,108,864 pixel ids and contributions a 4K render hands it, into
+     1024^2), edge shapes (empty segments, GROUP, GROUP + 1, GROUP^2 and
+     GROUP^2 + 1 rows, C = 60 and 1), two sort passes (16,200 segments),
+     three (5,000,000), the one-digit limit (2,047 and 2,048 segments, int32
+     and int64 ids), every row dropped, and sparse two-pass splats into
+     1024^2 (16 lit pixels; every row on one pixel); each one's time, its
+     device ops (and the profiler sessions they took) and their device
+     time by kernel (the grouping's share: the radix sort's kernels),
+     its peak memory above its inputs, beside torch's `index_add_` (atomic,
+     and in the deterministic mode), the plain version's and its bound; at
+     most 10 device ops at the headline
   i  with --against DIR (the root of another checkout, e.g. an earlier
      commit unpacked by `git archive`): that checkout against this one, each
      in fresh processes, in turns (DIR, this, this, DIR): K1, K2 and K3
@@ -1232,16 +1239,21 @@ def _scale_phase(dev, card, kernels):
 # the shape of the main path's segment sum (the headline step's recompute
 # backward), whose times go into the kernel line
 _SEG_MAIN = "headline recompute 262,144 x 60 -> 450"
+# the device work of the segment sum's grouping (the radix sort, its counters
+# and the offsets of a multi-pass sort): `kernel_ab.device_kernels`' names
+_SEG_GROUPING = ("Memset", "tile_histogram", "scan_digits", "tile_scatter", "segment_bounds")
 
 
 def _segment_phase(dev, card, scene, win):
     """Phase s: the segment-sum kernel against its plain version on the card
-    at the shapes the main path gives it, with its time beside torch's
-    `index_add_` (atomic, and in the deterministic mode), its plain
-    version's and its bound.  win: K1's winners of the headline grid.
+    at the shapes the main path gives it and at the sort's edge shapes, with
+    its time, device ops (their device time by kernel) and peak memory
+    beside torch's `index_add_` (atomic, and in the deterministic mode), its
+    plain version's and its bound.  win: K1's winners of the headline grid.
     Returns {shape: row}."""
     import torch
 
+    from cbtr_tpu_torch.harness import kernel_ab
     from cbtr_tpu_torch.models import scene_ortho_grid
     from cbtr_tpu_torch.ops import cuda_segment as sg
     from cbtr_tpu_torch.ops import cuda_sweep as cs
@@ -1281,13 +1293,38 @@ def _segment_phase(dev, card, scene, win):
     lengths = torch.tensor([0, 1, L, L + 1, L * L, 0, L * L + 1, 3])
     edge = torch.repeat_interleave(torch.arange(lengths.numel()), lengths)
     edge = edge[torch.randperm(edge.numel(), generator=torch.Generator().manual_seed(0))]
+    win64 = win.clamp_min(0).to(torch.int64)
+    n = win.numel()
+
+    def ids_in(low, high):
+        return torch.randint(low, high, (n,), generator=gen, device=dev)
+
     shapes = {
-        _SEG_MAIN: (win.clamp_min(0).to(torch.int64), normal(win.numel(), 60), P),
+        _SEG_MAIN: (win64, normal(n, 60), P),
+        "headline recompute, int32 ids": (win64.to(torch.int32), normal(n, 60), P),
         "4K chunk recompute 1,048,576 x 60 -> 450": (win4.clamp_min(0).to(torch.int64),
                                                      normal(win4.numel(), 60), P),
         "4K splat 67,108,864 x 1 -> 1024^2": (splat_ids, splat_vals, pixels),
         f"edge {edge.numel():,} x 60 -> 8": (edge.to(dev), normal(edge.numel(), 60), 8),
         f"edge {edge.numel():,} x 1 -> 8": (edge.to(dev), normal(edge.numel(), 1), 8),
+        # two sort passes (14 bits), the split-6 lens's patch count
+        "262,144 x 60 -> 16,200 (two passes)": (ids_in(0, 16200), normal(n, 60), 16200),
+        # the one-digit limit: 2,048 keys (with the dropped rows' key) in one
+        # pass of 11 bits, 2,049 in two
+        "262,144 x 1 -> 2,047 (one pass)": (ids_in(-8, 2056).to(torch.int32), normal(n, 1), 2047),
+        "262,144 x 1 -> 2,048 (two passes)": (ids_in(-8, 2056), normal(n, 1), 2048),
+        "262,144 x 60 -> 2,048, int32 ids": (ids_in(0, 2048).to(torch.int32), normal(n, 60),
+                                              2048),
+        "all rows dropped 262,144 x 60 -> 450": (ids_in(450, 10000), normal(n, 60), P),
+        # three passes (23 bits), the plan's widest sort
+        "262,144 x 1 -> 5,000,000 (three passes)": (ids_in(-8, 5000008), normal(n, 1),
+                                                    5000000),
+        # sparse splats (two passes): most of 1024^2 segments empty, between
+        # few keys far apart
+        "262,144 x 1 -> 1024^2, 16 lit pixels": (ids_in(0, 16) * 65521 + 7, normal(n, 1),
+                                                 1 << 20),
+        "262,144 x 60 -> 1024^2, every row on one pixel": (
+            torch.full((n,), (1 << 19) + 512, device=dev), normal(n, 60), 1 << 20),
     }
     del captured, win4
     rows = {}
@@ -1301,29 +1338,49 @@ def _segment_phase(dev, card, scene, win):
         assert got.shape == want.shape and torch.equal(got, want), (
             name, int((got != want).sum()))
         assert not torch.signbit(got[got == 0]).any(), name
+        assert torch.equal(sg.launch(ids, vals, S), got), name
         counts = torch.bincount(ids.to(torch.int64).clamp(0, S), minlength=S + 1)[:S]
         big = ids.numel() >= 1 << 24
         windows, inner = (3, 1) if big else (7, 3)
         ms = _time_ms(lambda: sg.launch(ids, vals, S), windows=windows, inner=inner)
-        sort_ms = _time_ms(lambda: sg._grouping(ids, S), windows=windows, inner=inner)
+        ops, busy, per_kernel, sessions = kernel_ab.device_kernels(
+            lambda: sg.launch(ids, vals, S), kernel_ab.SEGMENT_STAGES)
+        grouping = sum(v for k, v in per_kernel.items() if k in _SEG_GROUPING)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        sg.launch(ids, vals, S)
+        torch.cuda.synchronize()
+        peak_gib = (torch.cuda.max_memory_allocated() - before) / 2**30
+        clamped = ids.clamp(0, S - 1)
         atomic_ms = _time_ms(lambda: torch.zeros((S, vals.shape[1]), device=dev).index_add_(
-            0, ids, vals), windows=windows, inner=inner)
+            0, clamped, vals), windows=windows, inner=inner)
         with _deterministic(True):
             det_ms = _time_ms(lambda: torch.zeros((S, vals.shape[1]), device=dev).index_add_(
-                0, ids, vals), windows=windows, inner=inner)
+                0, clamped, vals), windows=windows, inner=inner)
         nbytes = ids.numel() * ids.element_size() + vals.numel() * 4 + S * vals.shape[1] * 4
         bound = _bound_ms(float(vals.numel()), float(nbytes))
-        rows[name] = dict(ms=ms, sort_ms=sort_ms, plain_ms=plain_ms, atomic_ms=atomic_ms,
+        plan = sg._workspace_plan(ids.numel(), S, vals.shape[1])
+        rows[name] = dict(ms=ms, plain_ms=plain_ms, atomic_ms=atomic_ms,
                           deterministic_ms=det_ms, bound=bound, max_err=0.0,
-                          longest=int(counts.max()), rows=ids.numel(),
-                          levels=sg._levels(ids.numel()))
-        print(f"[s] segment_sum {name}: torch.equal to its plain version (no -0.0), longest "
-              f"segment {rows[name]['longest']} rows, {rows[name]['levels']} levels", flush=True)
-        print(f"[s] {card} | segment_sum {name}: {ms:.4f} ms ({sort_ms:.4f} of it the stable "
-              f"sort and offsets) vs plain version {plain_ms:.3f} ms, index_add_ {atomic_ms:.4f} "
-              f"ms (atomic), {det_ms:.4f} ms (torch's deterministic mode); bound "
-              f"{bound[0]:.4f} ms ({bound[1]})", flush=True)
-        del got, want
+                          longest=int(counts.max()), rows=ids.numel(), levels=plan.levels,
+                          passes=len(plan.widths), device_ops=ops, busy_ms=busy,
+                          grouping_ms=grouping, kernels_ms=per_kernel, peak_gib=peak_gib,
+                          profiler_sessions=sessions,
+                          workspace_gib=plan.nbytes / 2**30)
+        print(f"[s] segment_sum {name}: torch.equal to its plain version and to a second "
+              f"call (no -0.0), longest segment {rows[name]['longest']} rows, "
+              f"{len(plan.widths)} sort passes of {plan.widths} bits, {plan.levels} levels, "
+              f"{ids.dtype} ids", flush=True)
+        print(f"[s] {card} | segment_sum {name}: {ms:.4f} ms, {ops} device ops "
+              f"({sessions} profiler sessions), busy {busy:.4f} ms ({grouping:.4f} of it the "
+              f"grouping: "
+              f"{json.dumps({k: round(v, 4) for k, v in per_kernel.items()})}); peak "
+              f"{peak_gib:.3f} GiB above its inputs vs plain version {plain_ms:.3f} ms, "
+              f"index_add_ {atomic_ms:.4f} ms (atomic), {det_ms:.4f} ms (torch's deterministic "
+              f"mode); bound {bound[0]:.4f} ms ({bound[1]})", flush=True)
+        del got, want, clamped
+    assert rows[_SEG_MAIN]["device_ops"] <= 10, rows[_SEG_MAIN]
     del shapes, splat_ids, splat_vals
     torch.cuda.empty_cache()
     return rows
@@ -2235,8 +2292,10 @@ def main(argv=None) -> int:
             "bound_by": seg_rows[_SEG_MAIN]["bound"][1],
             "library_ms": seg_rows[_SEG_MAIN]["atomic_ms"],
             "library_deterministic_ms": seg_rows[_SEG_MAIN]["deterministic_ms"],
-            "shapes": {name: {k: r[k] for k in ("ms", "sort_ms", "plain_ms", "atomic_ms",
-                                                 "deterministic_ms", "longest", "levels")}
+            "device_ops": seg_rows[_SEG_MAIN]["device_ops"],
+            "shapes": {name: {k: r[k] for k in ("ms", "grouping_ms", "busy_ms", "device_ops",
+                                                 "plain_ms", "atomic_ms", "deterministic_ms",
+                                                 "longest", "passes", "levels", "peak_gib")}
                        | {"bound_ms": r["bound"][0]} for name, r in seg_rows.items()},
         },
         {

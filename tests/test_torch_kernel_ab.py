@@ -2,10 +2,12 @@
 
 Its timings need the card; what it does around them runs here: the capture
 of the second refraction's rays, the digest of a result, the merge of the
-two checkouts' runs, and the probe process, which imports the package of
-the checkout it is started in and refuses to run without a CUDA device.
+two checkouts' runs, the probe process, which imports the package of
+the checkout it is started in and refuses to run without a CUDA device, and
+the rule by which a profiler session of the segment sum counts.
 """
 import os
+import types
 
 import pytest
 import torch
@@ -79,3 +81,74 @@ def test_probe_process_imports_the_named_checkout(tmp_path, monkeypatch):
     text = str(failed.value)
     assert f"[probe] {tmp_path / 'cbtr_tpu_torch'}" in text
     assert "kernel_ab needs a CUDA device" in text
+
+
+class _Session:
+    """A stand-in for torch.profiler.profile whose sessions give the canned
+    device kernels of `sessions` in turn."""
+
+    def __init__(self, sessions):
+        self.sessions, self.opened = iter(sessions), 0
+
+    def __call__(self, activities):
+        names = next(self.sessions)
+        self.opened += 1
+        span = types.SimpleNamespace
+        self.ops = [span(name=n, device_type=torch.autograd.DeviceType.CUDA,
+                         time_range=span(start=10 * i, end=10 * i + 5))
+                    for i, n in enumerate(names)]
+        return self
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+    def events(self):
+        return self.ops
+
+
+@pytest.mark.parametrize("sessions, stages, used, opened", [
+    # the first session dropped a record: the next two agree
+    ([["Memset", "fold_rows"], ["Memset", "tile_histogram", "fold_rows"],
+      ["Memset", "tile_histogram", "fold_rows"]], (), 3, 3),
+    # another checkout's kernels (a sort and a fold) count without names
+    ([["sort", "searchsorted", "fold_level"]] * 2, (), 3, 2),
+    # this checkout's: two sessions agree but lack a stage, the next has it
+    ([["Memset", "fold_rows"]] * 2 + [["Memset", "scan_nodes", "fold_rows"]] * 2,
+     ("scan_nodes", "fold_"), 3, 4),
+    # sessions that saw nothing never count; full and short ones alternate
+    ([[], [], ["Memset", "scan_nodes", "fold_rows"], ["Memset"],
+      ["Memset", "scan_nodes", "fold_rows"]], ("fold_",), 3, 5),
+])
+def test_device_kernels_counts_a_session_an_earlier_one_agrees_with(monkeypatch, sessions, stages,
+                                                                    used, opened):
+    """A profiler session counts only when it saw some device op, as many as
+    an earlier session did, and each named stage; the ops are filed by the
+    segment sum's kernel names and the busy time is their union."""
+    fake = _Session(sessions)
+    monkeypatch.setattr(torch.profiler, "profile", fake)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    ops, busy, per, taken = kernel_ab.device_kernels(lambda: None, stages)
+    assert (ops, taken, fake.opened) == (used, opened, opened)
+    assert busy == pytest.approx(used * 5 / 1e3)
+    assert sum(per.values()) == pytest.approx(busy)
+    assert set(per) <= set(kernel_ab.SEGMENT_KERNELS) | set(sessions[-1])
+
+
+def test_device_kernels_raises_when_no_two_sessions_agree(monkeypatch):
+    monkeypatch.setattr(torch.profiler, "profile",
+                        _Session([["a"] * (i + 1) for i in range(8)]))
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    with pytest.raises(RuntimeError, match=r"no two sessions .*\[1, 2, 3, 4, 5, 6, 7, 8\]"):
+        kernel_ab.device_kernels(lambda: None, tries=8)
+
+
+def test_stage_names_are_checked_in_this_checkout_only(tmp_path, monkeypatch):
+    """The segment sum's stages are this checkout's kernel names: a probe of
+    another checkout (run with this file) does not require them."""
+    assert kernel_ab._this_package()
+    monkeypatch.setattr(cbtr_tpu_torch, "__file__",
+                        str(tmp_path / "cbtr_tpu_torch" / "__init__.py"))
+    assert not kernel_ab._this_package()
