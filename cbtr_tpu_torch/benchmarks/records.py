@@ -134,7 +134,8 @@ def launch_counts() -> dict:
 
     return {"sweep_select": cuda_sweep.sweep_select, "winner": cuda_winner.sweep_winner,
             "sweep_codes": cuda_codes.sweep_codes_cuda, "fma_chains": fma_peak.fma_chains,
-            "tables": cuda_tables.build_tables, "segment_sum": cuda_segment.segment_sum}
+            "tables": cuda_tables.build_tables, "pack_rays": cuda_tables.pack_rays,
+            "segment_sum": cuda_segment.segment_sum}
 
 
 def counted(fn):

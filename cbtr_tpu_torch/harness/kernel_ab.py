@@ -1,7 +1,7 @@
 """Two checkouts of the port timed against each other on the card, in turns.
 
     python -m cbtr_tpu_torch.harness.kernel_ab [--against DIR] [--rounds N]
-                                               [--segment-sum-only]
+                                               [--segment-sum-only | --tables-only]
 
 `probe` times a checkout's winner search at the main path's shapes: K1 and
 K2 (262,144 x 450 at both refractions of the headline step, 262,144 x 1800
@@ -10,16 +10,25 @@ For each: the kernel alone (`launch` on tables built once, K3 on outputs
 filled once), its tables alone (`prepare_inputs`), both together (the
 wrapper: what the main path pays), the host list builder `tile_block_lists`
 at the kernel's block size, and a digest of the wrapper's result.  Then the
-tables alone once more for K1, K2 and K3, with the device ops and the
-device-busy ms of one `prepare_inputs` under torch.profiler, and the
+tables alone once more for K1, K2 and K3, with the device ops, the
+device-busy ms and the device ms by kernel of one `prepare_inputs` under
+torch.profiler; the table kernel alone (`cuda_tables.build_tables` at block
+16 on the robot, the refined robot and split-6: P = 450, 1800, 16,200) and
+the ray table alone (`cuda_tables.pack_rays`, or `cuda_sweep.pad_rays`
+where a checkout has no ray-pack kernel, at 262,144 and 1,048,576 rays of the
+4096^2 grid), each with a digest of its output, its CUDA-event time, the
+host time to issue it, and its device ops and device ms by kernel per call
+(the kernel's own device time: `KERNEL_NAMES`); and the
 fixed-lens train step (step size 0) of the headline and of the refined
 robot, with its device ops and device-busy ms under torch.profiler, and a
 digest of that lens's forward render (the matrix-product splat) and of
-`intersect_rays`' fields (the recompute's forward).  First, the segment sum
+`intersect_rays`' fields (the recompute's forward) and of one step's
+gradients.  First, the segment sum
 (`cuda_segment.launch`) at the headline recompute's backward, a 4K chunk's,
 a 4K render's splat and a seeded splat (`segment_sum_inputs`): a digest of
 its output, its time, device ops, busy ms and peak memory.  With
---segment-sum-only the probe stops there (and the cull rows are left out).
+--segment-sum-only the probe stops there (and the cull rows are left out);
+--tables-only runs the table, ray and `prepare_inputs` rows alone.
 
 --against DIR names the root of another checkout of the repository, e.g.
 an earlier commit unpacked by `git archive <commit> | tar -x -C DIR` into an
@@ -27,7 +36,8 @@ ignored directory.  Each side then runs in a fresh process from its own
 root, in turns DIR, this, this, DIR (`--rounds` times).  That process
 imports the root's own package and reaches the kernels only through entry
 points both checkouts have (the `prepare_inputs`, `launch` and wrappers of
-cuda_sweep, cuda_winner and cuda_codes, `cuda_segment.launch`, `tile_block_lists`,
+cuda_sweep, cuda_winner and cuda_codes, `cuda_tables.build_tables`,
+`pad_rays`, `cuda_segment.launch`, `tile_block_lists`, `scene_ortho_grid`,
 `make_train_step`, `profile_step._busy`), so neither build's C interface is
 assumed.  A row's `same_winners` says whether every run of it gave one
 digest (of the winners; for a step row, of the image and the fields; for a
@@ -51,6 +61,7 @@ import os
 import statistics
 import subprocess
 import sys
+import time
 
 import torch
 
@@ -82,6 +93,16 @@ TABLE_SHAPES = (
     ("prepare_inputs alone, 262,144 x 1800 (K2)", {"refine": True}, 262144, "K2"),
     ("prepare_inputs alone, 65,536 x 450 (K3)", {}, 65536, "K3"),
 )
+# the table kernel alone at block 16: (label, scene arguments; the rays unused)
+TABLE_KERNEL_SHAPES = (
+    ("tables alone, P = 450", {"res": 16}),
+    ("tables alone, P = 1800", {"res": 16, "refine": True}),
+    ("tables alone, P = 16,200", {"res": 16, "split": 6}),
+)
+# the ray table alone: (label, the first rays of the 4096^2 grid)
+RAY_SHAPES = (("ray pack alone, 262,144", 1 << 18), ("ray pack alone, 1,048,576", 1 << 20))
+# calls a profiler session of a table or ray row makes (its numbers are per call)
+TABLE_CALLS = 20
 STEP_SCENES = (("headline step, robot 512^2", {}), ("refined step, robot 512^2", {"refine": True}))
 
 # `python -c` program of the probe process: runs this file, with --probe,
@@ -204,6 +225,12 @@ SEGMENT_KERNELS = ("Memset", "tile_histogram", "scan_digits", "tile_scatter", "s
                    "scan_nodes", "fold_values", "fold_rows")
 
 
+# the table kernel and the ray-pack kernel (csrc/tables.cu), by the names
+# `device_kernels` files their device time under
+TABLE_KERNELS = ("tables_kernel", "pack_rays_kernel")
+KERNEL_NAMES = SEGMENT_KERNELS + TABLE_KERNELS
+
+
 # the kernels every segment sum of this checkout launches (a fold at each level)
 SEGMENT_STAGES = ("Memset", "tile_histogram", "scan_digits", "tile_scatter", "scan_nodes",
                   "fold_")
@@ -219,8 +246,8 @@ def _this_package() -> bool:
 def device_kernels(fn, stages=(), tries: int = 12):
     """(device ops, busy ms, {kernel: device ms}, sessions) of one call of fn
     under torch.profiler (busy: the union of the ops' intervals); the
-    segment sum's kernels by name (SEGMENT_KERNELS), the rest by the
-    profiler's.  The profiler can drop device records, so a session counts
+    port's kernels by name (KERNEL_NAMES), the rest by the profiler's
+    (`_op_name`).  The profiler can drop device records, so a session counts
     only when it saw some device op, as many as an earlier session did, and
     a kernel of each name in `stages`; up to `tries` sessions (`sessions`:
     how many it took), then raises with the counts it saw."""
@@ -244,12 +271,74 @@ def device_kernels(fn, stages=(), tries: int = 12):
     per, busy, end = {}, 0.0, float("-inf")
     for e in sorted(ops, key=lambda e: e.time_range.start):
         a, b = e.time_range.start, e.time_range.end
-        key = next((k for k in SEGMENT_KERNELS if k in e.name), e.name[:40])
+        key = next((k for k in KERNEL_NAMES if k in e.name), _op_name(e.name))
         per[key] = per.get(key, 0.0) + (b - a) / 1e3
         if b > end:
             busy += b - max(a, end)
             end = b
     return len(ops), busy / 1e3, per, len(seen) + 1
+
+
+def _op_name(name: str) -> str:
+    """A torch kernel's name without its return type, parameters and the
+    arguments after its functor: "vectorized_elementwise_kernel<4,
+    FillFunctor<float>" tells a fill from a copy where 40 characters do not."""
+    name = name.removeprefix("void ").split("(")[0].replace("at::native::", "")
+    return name[:72]
+
+
+def host_ms(fn, calls: int = 50) -> float:
+    """Host ms to issue one call of fn (the host clock around `calls` calls,
+    no synchronisation in between; the device drains after)."""
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    dt = time.perf_counter() - t
+    torch.cuda.synchronize()
+    return dt / calls * 1e3
+
+
+def _per_call(fn, calls: int = TABLE_CALLS) -> dict:
+    """fn's device ops, busy ms and device ms by kernel per call, from one
+    profiler session of `calls` calls (`device_kernels`)."""
+    ops, busy, per, sessions = device_kernels(lambda: [fn() for _ in range(calls)])
+    return {"device_ops": ops / calls, "busy_ms": busy / calls,
+            "kernels_ms": {k: v / calls for k, v in per.items()},
+            "profiler_sessions": sessions}
+
+
+def table_rows(device) -> dict:
+    """{label: numbers}: the table kernel alone at TABLE_KERNEL_SHAPES and the
+    ray table alone at RAY_SHAPES (module docstring)."""
+    from cbtr_tpu_torch.models import scene_ortho_grid
+    from cbtr_tpu_torch.ops import cuda_tables as ct
+
+    out = {}
+    for label, kw in TABLE_KERNEL_SHAPES:
+        patches = robot_lens_scene(device=device, **kw).patches
+
+        def build():
+            return ct.build_tables(patches, cs.BLOCK_P)
+
+        out[label] = {"digest": digest(*build()), "patches": patches.num_patches,
+                      "ms": time_ms(build), "host_ms": host_ms(build), **_per_call(build)}
+    # a checkout without the ray-pack kernel packs the rays with plain torch
+    # ops on its CUDA path (`pad_rays`)
+    pack = getattr(ct, "pack_rays", cs.pad_rays)
+    grid = scene_ortho_grid(4096)
+    for label, rays in RAY_SHAPES:
+        s, d = grid.rays_at(torch.arange(rays, device=device))
+
+        def packed():
+            return pack(s, d)
+
+        out[label] = {"digest": digest(packed()), "pack": pack.__name__, "ms": time_ms(packed),
+                      "host_ms": host_ms(packed), **_per_call(packed)}
+        del s, d
+    torch.cuda.empty_cache()
+    return out
 
 
 def segment_sum_rows(device) -> dict:
@@ -282,12 +371,32 @@ def segment_sum_rows(device) -> dict:
     return out
 
 
-def probe(device, segment_sum_only: bool = False) -> dict:
+def prepare_rows(device) -> dict:
+    """{label: numbers}: `prepare_inputs` alone at TABLE_SHAPES, its time and
+    its device ops, busy ms and device ms by kernel per call."""
+    out = {}
+    for label, kw, rays, kernel in TABLE_SHAPES:
+        sc = robot_lens_scene(res=512, device=device, **kw)
+        prepare = {"K1": cs, "K2": cw, "K3": cc}[kernel].prepare_inputs
+
+        def tables():
+            return prepare(sc.patches, sc.start[:rays], sc.direction[:rays])
+
+        out[label] = {"tables_ms": time_ms(tables), "host_ms": host_ms(tables),
+                      **_per_call(tables)}
+        del sc
+        torch.cuda.empty_cache()
+    return out
+
+
+def probe(device, segment_sum_only: bool = False, tables_only: bool = False) -> dict:
     """{label: numbers} of this process's package at every shape (module
-    docstring), or at the segment sum's only; scenes are built one at a
-    time."""
+    docstring), or at the segment sum's only, or at the tables' only; scenes
+    are built one at a time."""
     from cbtr_tpu_torch.harness.profile_step import _busy
 
+    if tables_only:
+        return {**table_rows(device), **prepare_rows(device)}
     out = segment_sum_rows(device)
     if segment_sum_only:
         return out
@@ -307,16 +416,8 @@ def probe(device, segment_sum_only: bool = False) -> dict:
             sc.patches, s, d)
         del sc, s, d
         torch.cuda.empty_cache()
-    for label, kw, rays, kernel in TABLE_SHAPES:
-        sc = robot_lens_scene(res=512, device=device, **kw)
-        prepare = {"K1": cs, "K2": cw, "K3": cc}[kernel].prepare_inputs
-
-        def tables():
-            return prepare(sc.patches, sc.start[:rays], sc.direction[:rays])
-
-        out[label] = {"tables_ms": time_ms(tables), **_busy(tables, True)}
-        del sc
-        torch.cuda.empty_cache()
+    out.update(table_rows(device))
+    out.update(prepare_rows(device))
     for label, kw in STEP_SCENES:
         sc = robot_lens_scene(res=512, device=device, **kw)
         target = torch.zeros((128, 128), dtype=torch.float32, device=device)
@@ -331,18 +432,21 @@ def probe(device, segment_sum_only: bool = False) -> dict:
             img = rd.render_lens_image(sc.patches, sc.refractive_index, sc.start,
                                        sc.direction, sc.screen_plane, resolution=128)
             hit = ix.intersect_rays(sc.patches, sc.start, sc.direction)
-        out[label] = {"digest": digest(img, *hit), "step_ms": time_ms(run, windows=5, inner=2),
-                      **_busy(run, True)}
-        del img, hit
+        stepped, _ = run()
+        grads = (stepped.control_points.grad, stepped.refractive_index.grad)
+        out[label] = {"digest": digest(img, *hit, *grads),
+                      "step_ms": time_ms(run, windows=5, inner=2), **_busy(run, True)}
+        del img, hit, stepped, grads
         del sc, params, step
         torch.cuda.empty_cache()
     return out
 
 
-def run_checkout(root: str, segment_sum_only: bool = False) -> dict:
+def run_checkout(root: str, segment_sum_only: bool = False, tables_only: bool = False) -> dict:
     """`probe` in a fresh process that imports the package of the checkout
     at `root`; raises if it fails."""
-    extra = ["--segment-sum-only"] if segment_sum_only else []
+    extra = (["--segment-sum-only"] if segment_sum_only else []) + (
+        ["--tables-only"] if tables_only else [])
     proc = subprocess.run([sys.executable, "-c", _RUN_PROBE, os.path.abspath(__file__), *extra],
                           cwd=root, capture_output=True, text=True, timeout=1800)
     if proc.returncode != 0:
@@ -368,15 +472,16 @@ def merge(results) -> list[dict]:
     return list(rows.values())
 
 
-def compare_checkouts(against: str = "", rounds: int = 1,
-                      segment_sum_only: bool = False) -> list[dict]:
+def compare_checkouts(against: str = "", rounds: int = 1, segment_sum_only: bool = False,
+                      tables_only: bool = False) -> list[dict]:
     """This checkout, alone or in turns with the one at `against` (module
     docstring), merged by `merge`."""
     order = [("this", THIS_ROOT)]
     if against:
         order = [("against", against), ("this", THIS_ROOT), ("this", THIS_ROOT),
                  ("against", against)] * rounds
-    return merge([(side, run_checkout(root, segment_sum_only)) for side, root in order])
+    return merge([(side, run_checkout(root, segment_sum_only, tables_only))
+                  for side, root in order])
 
 
 def cull_rows(device):
@@ -411,6 +516,8 @@ def main(argv=None) -> int:
     ap.add_argument("--rounds", type=int, default=1, help="turns of 4 runs each")
     ap.add_argument("--segment-sum-only", action="store_true",
                     help="time the segment sum's rows alone")
+    ap.add_argument("--tables-only", action="store_true",
+                    help="time the table, ray and prepare_inputs rows alone")
     ap.add_argument("--probe", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.probe:
@@ -421,12 +528,14 @@ def main(argv=None) -> int:
     # the splat is an f32 matrix product: TF32 would change the image
     torch.backends.cuda.matmul.allow_tf32 = False
     if args.probe:
-        print(json.dumps(probe(torch.device("cuda", 0), args.segment_sum_only)), flush=True)
+        print(json.dumps(probe(torch.device("cuda", 0), args.segment_sum_only,
+                               args.tables_only)), flush=True)
         return 0
     name = card()
-    for row in compare_checkouts(args.against, args.rounds, args.segment_sum_only):
+    for row in compare_checkouts(args.against, args.rounds, args.segment_sum_only,
+                                 args.tables_only):
         print(f"[ab] {name} | {json.dumps(row)}", flush=True)
-    if args.segment_sum_only:
+    if args.segment_sum_only or args.tables_only:
         return 0
     for row in cull_rows(torch.device("cuda", 0)):
         print(f"[ab] {name} | {json.dumps(row)}", flush=True)

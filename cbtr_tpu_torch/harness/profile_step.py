@@ -13,12 +13,17 @@ rays, 128 x 128 image, zero target):
   step's peak device memory;
 * torch.profiler over one forward and one step: device ops run and the
   device's busy time (the union of their intervals), set against the
-  unprofiled wall time; the same over one `prepare_inputs` (K1's tables);
+  unprofiled wall time; the same, with the device ms by kernel, per call
+  of a table build (`cuda_tables.build_tables`, once a lens a trace) and
+  of one chunk's `prepare_inputs` on those tables (the ray pack), 20 calls
+  a session under `kernel_ab.device_kernels`' rule (a session counts when
+  it saw as many device ops as an earlier one: the profiler can drop a
+  short call's), before any long session;
 * the fraction of (tile x block) pairs K1's cull lists (the kernel's own
   per-tile counts on the card).
 
     python -m cbtr_tpu_torch.harness.profile_step [--res 512] [--runs 5]
-        [--chunk 0] [--device cuda] [--out profile.json]
+        [--chunk 0] [--device cuda] [--out profile.json] [--label TEXT]
 
 --chunk N scans the rays in chunks of N, as the 4096^2 scripts do
 (`python -m cbtr_tpu_torch.harness.profile_step --res 4096 --chunk 1048576`
@@ -26,22 +31,25 @@ profiles their render and step); the tables and the listed fraction are
 then those of the first chunk.
 
 It runs on the card and raises where there is none.  --device cpu (for
-debugging at a small --res) takes the host times only.
+debugging at a small --res) takes the host times only.  The record (with
+the command, the card and its power limit) goes out through
+`benchmarks/records.py`, its JSON last.
 """
 from __future__ import annotations
 
 import argparse
 import contextlib
-import json
 import statistics
 import sys
 import time
 
 import torch
 
+from ..benchmarks import records
 from ..models import lens_model, robot_lens_scene
 from ..ops import cuda_segment as sg
 from ..ops import cuda_sweep as cs
+from ..ops import cuda_tables as ct
 from ..ops import intersect as ix
 from ..render import render as rd
 
@@ -51,7 +59,9 @@ STAGES = (
     ("trace_through_lens", rd, "trace_through_lens"),
     ("recompute_winner", ix, "recompute_winner"),
     ("winner_search", ix, "_winner_chunk"),
-    ("k1_tables", cs, "prepare_inputs"),
+    # the kernels' tables, once a lens a trace; a chunk's ray table
+    ("tables", ct, "build_tables"),
+    ("k1_rays", ct, "pack_rays"),
     ("k1_launch", cs, "launch"),
     ("screen_hits", rd, "screen_hits"),
     ("splat_bilinear", rd, "splat_bilinear"),
@@ -115,6 +125,17 @@ def _median_ms(fn, cuda: bool, runs: int) -> float:
             fn()
             times.append((time.perf_counter() - t) * 1e3)
     return statistics.median(times)
+
+
+def _kernels(fn, cuda: bool) -> dict:
+    """Device ops, busy ms and device ms by kernel per call of fn under
+    torch.profiler (`kernel_ab._per_call`: 20 calls a session, by
+    `kernel_ab.device_kernels`' rule)."""
+    if not cuda:
+        return {"device_ops": None, "busy_ms": None, "kernels_ms": None}
+    from .kernel_ab import _per_call
+
+    return _per_call(fn)
 
 
 def _busy(fn, cuda: bool) -> dict:
@@ -205,6 +226,14 @@ def run_profile(res: int = 512, runs: int = 5, device="cuda", chunk: int = 0) ->
 
     forward(), step(params, start, direction)          # warm-up (and the build)
     _sync(cuda)
+    # the tables (once a trace) and a chunk's inputs on them (the ray pack),
+    # profiled first: after a session of a whole 4K step the profiler's
+    # short sessions saw no device op in 12 tries (PERF.md §6)
+    first = slice(0, chunk or start.shape[0])
+    s1, d1 = start[first], direction[first]
+    tables = ix.winner_tables(patches)
+    tables_busy = _kernels(lambda: ix.winner_tables(patches), cuda)
+    rays_busy = _kernels(lambda: cs.prepare_inputs(patches, s1, d1, tables=tables), cuda)
 
     stages = _stage_means([_run_spans(forward, cuda) for _ in range(runs)], cuda)
 
@@ -227,9 +256,7 @@ def run_profile(res: int = 512, runs: int = 5, device="cuda", chunk: int = 0) ->
         torch.cuda.synchronize()
         peak_gib = torch.cuda.max_memory_allocated(dev) / 2 ** 30
 
-    first = slice(0, chunk or start.shape[0])
-    s1, d1 = start[first], direction[first]
-    inputs = cs.prepare_inputs(patches, s1, d1)
+    inputs = cs.prepare_inputs(patches, s1, d1, tables=tables)
     if cuda:
         counts = cs.launch(inputs).counts
     else:
@@ -237,7 +264,6 @@ def run_profile(res: int = 512, runs: int = 5, device="cuda", chunk: int = 0) ->
     listed = float(counts.sum()) / (counts.numel() * inputs.bounds.shape[0])
     fwd_busy = _busy(forward, cuda)
     step_busy = _busy(lambda: step(params, start, direction), cuda)
-    tables_busy = _busy(lambda: cs.prepare_inputs(patches, s1, d1), cuda)
     share = (lambda b, w: b / w if b is not None else None)
     return {
         "device": torch.cuda.get_device_name(dev) if cuda else "cpu",
@@ -253,6 +279,7 @@ def run_profile(res: int = 512, runs: int = 5, device="cuda", chunk: int = 0) ->
         "forward_profile": {**fwd_busy, "busy_share": share(fwd_busy["busy_ms"], forward_ms)},
         "step_profile": {**step_busy, "busy_share": share(step_busy["busy_ms"], step_ms)},
         "tables_profile": tables_busy,
+        "rays_profile": rays_busy,
     }
 
 
@@ -264,17 +291,17 @@ def main(argv=None) -> int:
                     help="rays a chunk of intersect_rays (0: one chunk)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (the default; raises without a card) or cpu")
-    ap.add_argument("--out", default="", help="also write the result here (JSON)")
+    records.add_output_args(ap)
     args = ap.parse_args(argv)
     result = run_profile(args.res, args.runs, args.device, args.chunk)
     for label, s in result["stages_forward"].items():
         dev_ms = "not measured" if s["device_ms"] is None else f"{s['device_ms']:.3f} ms"
         print(f"{label:20s} calls {s['calls']}  device {dev_ms}  host {s['host_ms']:.3f} ms")
-    text = json.dumps(result, indent=1)
-    print(text)
-    if args.out:
-        with open(args.out, "w") as f:
-            f.write(text + "\n")
+    record = {"metric": "stage profile of the robot-lens render and train step",
+              "command": f"python -m cbtr_tpu_torch.harness.profile_step --res {args.res} "
+                         f"--runs {args.runs} --chunk {args.chunk} --device {args.device}",
+              **result, **records.card_fields(torch.device(args.device))}
+    records.emit(record, args.out, args.label)
     return 0
 
 

@@ -106,14 +106,15 @@ class CodesOutputs:
 
 def prepare_inputs(patches: BezierPatches, start, direction,
                    use_aabb: bool = True) -> CodesInputs:
-    """K3's tables on the rays' device: K1's rays (`cuda_sweep.pad_rays`);
+    """K3's tables on the rays' device: K1's rays (`cuda_tables.pack_rays`);
     the patch table and the block bounds at block 32 from
     `cuda_tables.build_tables`; use_aabb as in `cuda_sweep.tile_block_lists`.
     No lists: the kernel culls for itself."""
     device = start.device
     if patches.device != device or direction.device != device:
         raise ValueError("patches, start and direction must share one device")
-    rays_t = cs.pad_rays(start.to(torch.float32), direction.to(torch.float32))
+    rays_t = cuda_tables.pack_rays(start.to(torch.float32).contiguous(),
+                                   direction.to(torch.float32).contiguous())
     patch_t, bounds, _ = cuda_tables.build_tables(patches, BLOCK_P)
     return CodesInputs(rays_t, patch_t, bounds, patches.num_patches, use_aabb)
 

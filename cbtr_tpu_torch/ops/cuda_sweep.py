@@ -505,23 +505,52 @@ class KernelOutputs:
     pairs: torch.Tensor | None = None   # [T, 2] i32: pass-1 pairs, retries evaluated
 
 
-def prepare_inputs(patches: BezierPatches, start, direction,
-                   use_aabb: bool = True, block_p: int = BLOCK_P) -> KernelInputs:
-    """The kernel's tables on the rays' device: the rays (`pad_rays`); patch
-    table, block bounds and neighbours from `cuda_tables.build_tables` (the
-    table kernel on the card, the plain versions on the CPU); use_aabb and
-    block_p as in `tile_block_lists` (the main path runs BLOCK_P; 32 is the
-    JAX package's block above its ray cap, for comparisons).  No lists: the
-    kernels cull for themselves."""
+def check_tables(tables, patches: BezierPatches, block_p: int, clamped: bool):
+    """Raise unless `tables` (a `cuda_tables.PatchTables`) are these patches'
+    tables at block_p, with the neighbours clamped or not as the kernel
+    reads them (K2: clamped), on the patches' device."""
+    if (tables.num_patches, tables.block_p, tables.clamped) != (
+            patches.num_patches, block_p, clamped) or tables.patch_t.device != patches.device:
+        raise ValueError(
+            f"tables of {tables.num_patches} patches at block {tables.block_p} "
+            f"(clamped={tables.clamped}) on {tables.patch_t.device}; this kernel takes "
+            f"{patches.num_patches} at block {block_p} (clamped={clamped}) on "
+            f"{patches.device}")
+
+
+def _inputs(patches: BezierPatches, start, direction, use_aabb: bool, block_p: int,
+            tables, clamped: bool) -> KernelInputs:
+    """K1's (clamped False) or K2's (clamped True) `KernelInputs`: the rays
+    packed (`cuda_tables.pack_rays`) and the given tables, or tables built
+    here (`cuda_tables.build_tables`)."""
     from . import cuda_tables       # it imports this module for the plain versions
 
     device = start.device
     if patches.device != device or direction.device != device:
         raise ValueError("patches, start and direction must share one device")
-    rays_t = pad_rays(start.to(torch.float32), direction.to(torch.float32))
-    patch_t, bounds, nb = cuda_tables.build_tables(patches, block_p)
-    return KernelInputs(rays_t, patch_t, bounds, nb, patches.num_patches, use_aabb,
-                        block_p)
+    if tables is None:
+        tables = cuda_tables.build_tables(patches, block_p, clamp=clamped)
+    else:
+        check_tables(tables, patches, block_p, clamped)
+    rays_t = cuda_tables.pack_rays(start.to(torch.float32).contiguous(),
+                                   direction.to(torch.float32).contiguous())
+    return KernelInputs(rays_t, tables.patch_t, tables.bounds, tables.nb,
+                        patches.num_patches, use_aabb, block_p)
+
+
+def prepare_inputs(patches: BezierPatches, start, direction,
+                   use_aabb: bool = True, block_p: int = BLOCK_P,
+                   tables=None) -> KernelInputs:
+    """The kernel's tables on the rays' device: the rays
+    (`cuda_tables.pack_rays`: one launch of the ray-pack kernel on the
+    card, `pad_rays` on the CPU); patch table, block bounds and neighbours
+    from `tables` (a `cuda_tables.PatchTables` of these patches at block_p,
+    unclamped), or, where none are given, from `cuda_tables.build_tables`
+    (the table kernel on the card, the plain versions on the CPU); use_aabb
+    and block_p as in `tile_block_lists` (the main path runs BLOCK_P; 32 is
+    the JAX package's block above its ray cap, for comparisons).  No lists:
+    the kernels cull for themselves."""
+    return _inputs(patches, start, direction, use_aabb, block_p, tables, False)
 
 
 def check_inputs(inputs: KernelInputs, kernel: str):
@@ -595,18 +624,23 @@ def launch(inputs: KernelInputs, lists: bool = False, pairs: bool = False) -> Ke
     return launch_kernel("sweep_select", inputs, lists, pairs)
 
 
-def sweep_select(patches: BezierPatches, start, direction, use_aabb: bool = True):
+def sweep_select(patches: BezierPatches, start, direction, use_aabb: bool = True,
+                 tables=None):
     """K1 wrapper: (any_hit [R] bool, win [R] i32, win_dist [R] f32).
 
     CPU tensors go to `sweep_select_reference` (cull=True); CUDA tensors
-    launch csrc/sweep_select.cu; use_aabb as in `tile_block_lists`.  There
-    is no fallback between the two: a build or launch failure raises, and
-    so does P > _FUSED_MAX_P on the GPU (`intersect_rays` sends that range
-    to K2, cuda_winner.sweep_winner).  `sweep_select.launches` counts the
-    kernel's launches."""
+    launch csrc/sweep_select.cu; use_aabb as in `tile_block_lists`; tables:
+    the patches' `cuda_tables.PatchTables` at BLOCK_P, where the caller
+    built them (`prepare_inputs` builds them otherwise; the twin checks
+    them and builds its own).  There is no fallback between the two: a
+    build or launch failure raises, and so does P > _FUSED_MAX_P on the GPU
+    (`intersect_rays` sends that range to K2, cuda_winner.sweep_winner).
+    `sweep_select.launches` counts the kernel's launches."""
     if not start.is_cuda:
+        if tables is not None:
+            check_tables(tables, patches, BLOCK_P, False)
         return sweep_select_reference(patches, start, direction, use_aabb=use_aabb)
-    out = launch(prepare_inputs(patches, start, direction, use_aabb))
+    out = launch(prepare_inputs(patches, start, direction, use_aabb, tables=tables))
     R = start.shape[0]
     best = out.dist[:R]
     return best < _BIG_F * 0.5, out.win[:R], best

@@ -28,8 +28,6 @@ the other.
 """
 from __future__ import annotations
 
-import dataclasses
-
 import torch
 
 from ..bezier.patches import BezierPatches
@@ -85,11 +83,12 @@ def sweep_winner_reference(patches: BezierPatches, start, direction,
 # ---------------------------------------------------------------------------
 
 def prepare_inputs(patches: BezierPatches, start, direction,
-                   use_aabb: bool = True) -> cs.KernelInputs:
+                   use_aabb: bool = True, tables=None) -> cs.KernelInputs:
     """K2's tables: K1's (`cuda_sweep.prepare_inputs`), with the neighbour
-    ids clipped to [0, P) (padding rows are never read)."""
-    inputs = cs.prepare_inputs(patches, start, direction, use_aabb)
-    return dataclasses.replace(inputs, nb=inputs.nb.clamp(0, inputs.num_patches - 1))
+    ids clipped to [0, P) by the table kernel (padding rows are never
+    read); tables: the patches' clamped `cuda_tables.PatchTables` at
+    BLOCK_P, where the caller built them."""
+    return cs._inputs(patches, start, direction, use_aabb, cs.BLOCK_P, tables, True)
 
 
 def launch(inputs: cs.KernelInputs, lists: bool = False,
@@ -99,16 +98,20 @@ def launch(inputs: cs.KernelInputs, lists: bool = False,
     return cs.launch_kernel("winner", inputs, lists, pairs)
 
 
-def sweep_winner(patches: BezierPatches, start, direction, use_aabb: bool = True):
+def sweep_winner(patches: BezierPatches, start, direction, use_aabb: bool = True,
+                 tables=None):
     """K2 wrapper: (any_hit [R] bool, win [R] i32, win_dist [R] f32).
 
     CPU tensors go to `sweep_winner_reference`; CUDA tensors launch
-    csrc/winner.cu; use_aabb as in `cuda_sweep.tile_block_lists`.  There is
-    no fallback between the two: a build or launch failure raises.
+    csrc/winner.cu; use_aabb as in `cuda_sweep.tile_block_lists`; tables as
+    in `prepare_inputs` (the twin checks them and builds its own).  There
+    is no fallback between the two: a build or launch failure raises.
     `sweep_winner.launches` counts the kernel's launches."""
     if not start.is_cuda:
+        if tables is not None:
+            cs.check_tables(tables, patches, cs.BLOCK_P, True)
         return sweep_winner_reference(patches, start, direction, use_aabb)
-    out = launch(prepare_inputs(patches, start, direction, use_aabb))
+    out = launch(prepare_inputs(patches, start, direction, use_aabb, tables))
     R = start.shape[0]
     best = out.dist[:R]
     return best < cs._BIG_F * 0.5, out.win[:R], best

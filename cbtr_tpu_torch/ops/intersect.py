@@ -375,33 +375,62 @@ def select_best(what, dist, pt, n, b, cos, hit_patch) -> RayHit:
     )
 
 
-def _winner_chunk(patches: BezierPatches, start, direction, backend: str):
+def _winner_route(num_patches: int):
+    """(wrapper, twin, clamped) of the winner search at num_patches: K1
+    (cuda_sweep) up to _FUSED_MAX_P = 1024 patches, K2 (cuda_winner) above,
+    as in the JAX package; clamped: whether the kernel reads its neighbour
+    ids clamped to [0, P) (K2)."""
+    from . import cuda_sweep, cuda_winner
+
+    if num_patches <= cuda_sweep._FUSED_MAX_P:
+        return cuda_sweep.sweep_select, cuda_sweep.sweep_select_reference, False
+    return cuda_winner.sweep_winner, cuda_winner.sweep_winner_reference, True
+
+
+def winner_tables(patches: BezierPatches, backend: str = "auto"):
+    """The winner kernel's tables for these patches (`cuda_tables.PatchTables`
+    at cuda_sweep.BLOCK_P, the neighbours clamped for K2, `_winner_route`):
+    one build (`cuda_tables.build_tables`: the table kernel on the card, its
+    plain version on the CPU) that every chunk and both refractions of a
+    trace share; they are a function of the detached patches alone.  None
+    for backend "plain", whose twins build their own."""
+    from . import cuda_sweep, cuda_tables
+
+    if backend == "plain":
+        return None
+    with torch.no_grad():
+        return cuda_tables.build_tables(patches.detach(), cuda_sweep.BLOCK_P,
+                                        clamp=_winner_route(patches.num_patches)[2])
+
+
+def _winner_chunk(patches: BezierPatches, start, direction, backend: str, tables=None):
     """Stages 1+2 (sweep + select) for a chunk of rays: the gradient-free
     winner search.  Returns (any_hit [R] bool, win [R] i32).
 
     P <= 1024 goes to K1 (cuda_sweep), P > 1024 to K2 (cuda_winner), as in
-    the JAX package.  backend "auto" goes through that kernel's wrapper
-    (the kernel on the GPU, its plain twin on the CPU); "plain" forces the
-    twin on any device."""
-    from . import cuda_sweep, cuda_winner
-
-    if patches.num_patches <= cuda_sweep._FUSED_MAX_P:
-        wrapper, twin = cuda_sweep.sweep_select, cuda_sweep.sweep_select_reference
-    else:
-        wrapper, twin = cuda_winner.sweep_winner, cuda_winner.sweep_winner_reference
+    the JAX package (`_winner_route`).  backend "auto" goes through that
+    kernel's wrapper (the kernel on the GPU, its plain twin on the CPU);
+    "plain" forces the twin on any device, on tables of its own.  tables:
+    `winner_tables(patches)` for backend "auto", built once by the caller
+    for all its chunks (None: the kernel's `prepare_inputs` builds them for
+    this chunk)."""
+    wrapper, twin, _ = _winner_route(patches.num_patches)
     with torch.no_grad():
         p, s, d = patches.detach(), start.detach(), direction.detach()
-        any_hit, win, _ = (twin if backend == "plain" else wrapper)(p, s, d)
+        if backend == "plain":
+            any_hit, win, _ = twin(p, s, d)
+        else:
+            any_hit, win, _ = wrapper(p, s, d, tables=tables)
     return any_hit, win
 
 
-def _intersect_chunk(patches: BezierPatches, start, direction, backend: str):
-    any_hit, win = _winner_chunk(patches, start, direction, backend)
+def _intersect_chunk(patches: BezierPatches, start, direction, backend: str, tables=None):
+    any_hit, win = _winner_chunk(patches, start, direction, backend, tables=tables)
     return recompute_winner(patches, start, direction, any_hit, win)
 
 
 def intersect_rays(patches: BezierPatches, start, direction,
-                   chunk_size: int = 0, backend: str = "auto") -> RayHit:
+                   chunk_size: int = 0, backend: str = "auto", tables=None) -> RayHit:
     """Intersect a batch of rays with the whole Bezier surface.
 
     start/direction: [..., 3].  chunk_size > 0 scans the ray axis in chunks
@@ -410,6 +439,9 @@ def intersect_rays(patches: BezierPatches, start, direction,
     holding every chunk's Newton residuals.
     backend: "auto" (CUDA kernel for GPU tensors, plain twin for CPU
     tensors) or "plain" (the twin on any device; for comparisons).
+    tables: `winner_tables(patches, backend)` where the caller has them (a
+    trace's two refractions share one build); otherwise they are built here
+    once, before the chunk loop.
     Returns a RayHit with leading shape [...].
     """
     if backend not in BACKENDS:
@@ -418,15 +450,17 @@ def intersect_rays(patches: BezierPatches, start, direction,
     s = start.reshape(-1, 3).to(torch.float32)
     d = direction.reshape(-1, 3).to(torch.float32)
     R = s.shape[0]
+    if tables is None:
+        tables = winner_tables(patches, backend)
 
     if chunk_size and R > chunk_size:
         chunks = []
         for r0 in range(0, R, chunk_size):
             sc, dc = s[r0:r0 + chunk_size], d[r0:r0 + chunk_size]
-            ah, w = _winner_chunk(patches, sc, dc, backend)
+            ah, w = _winner_chunk(patches, sc, dc, backend, tables=tables)
             chunks.append(checkpoint(recompute_winner, patches, sc, dc, ah, w,
                                      use_reentrant=False))
         hit = RayHit(*(torch.cat(fields, dim=0) for fields in zip(*chunks)))
     else:
-        hit = _intersect_chunk(patches, s, d, backend)
+        hit = _intersect_chunk(patches, s, d, backend, tables=tables)
     return RayHit(*(x.reshape(batch_shape + x.shape[1:]) for x in hit))

@@ -14,7 +14,7 @@ import torch
 
 from .. import geom
 from ..config import DEFAULT as CFG
-from ..ops.intersect import WHAT_INTERSECT, intersect_rays
+from ..ops.intersect import WHAT_INTERSECT, intersect_rays, winner_tables
 
 REFRACT_NONE = 0
 REFRACT_INSIDE = 1
@@ -22,7 +22,8 @@ REFRACT_OUTSIDE = 2
 
 
 def refract_rays(patches, refractive_index, start, direction, expected,
-                 chunk_size: int = 0, backend: str = "auto", intersect_fn=None):
+                 chunk_size: int = 0, backend: str = "auto", intersect_fn=None,
+                 tables=None):
     """Refract a ray batch at the lens surface.
 
     expected: int (REFRACT_INSIDE or REFRACT_OUTSIDE) or [...] i32 tensor.
@@ -35,10 +36,14 @@ def refract_rays(patches, refractive_index, start, direction, expected,
     `intersect_rays` (chunk_size and backend then go unused), so a sharded
     intersection (parallel.patch_parallel.intersect_rays_patch_sharded)
     reuses this Snell physics.
+
+    tables: the winner kernel's tables of `patches`
+    (`ops.intersect.winner_tables`) where the caller built them; otherwise
+    `intersect_rays` builds them.  Unused with intersect_fn.
     """
     if intersect_fn is None:
         hit = intersect_rays(patches, start, direction, chunk_size=chunk_size,
-                             backend=backend)
+                             backend=backend, tables=tables)
     else:
         hit = intersect_fn(patches, start, direction)
     ok = hit.what == WHAT_INTERSECT
@@ -84,17 +89,20 @@ def trace_through_lens(patches, refractive_index, start, direction,
     """Full lens pass: refract entering (expect inside), then exiting
     (expect outside) — the per-ray state machine of the reference's
     illumination loop (reference/test.cpp:376-394).  intersect_fn: see
-    `refract_rays`.
+    `refract_rays`.  Both refractions meet the same patches, so the winner
+    kernel's tables are built once here (`ops.intersect.winner_tables`)
+    and shared by both and by every chunk of each.
 
     Returns (start, direction, alive_mask, entry_point, exit_point).
     """
+    tables = None if intersect_fn is not None else winner_tables(patches, backend)
     s1, d1, st1 = refract_rays(
         patches, refractive_index, start, direction, REFRACT_INSIDE,
-        chunk_size, backend, intersect_fn,
+        chunk_size, backend, intersect_fn, tables,
     )
     s2, d2, st2 = refract_rays(
         patches, refractive_index, s1, d1, REFRACT_OUTSIDE, chunk_size, backend,
-        intersect_fn,
+        intersect_fn, tables,
     )
     alive = (st1 == REFRACT_INSIDE) & (st2 == REFRACT_OUTSIDE)
     return s2, d2, alive, s1, s2

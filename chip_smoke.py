@@ -17,8 +17,9 @@ checks them:
   block walk at blocks of 32) and whose roofline is measured by K4
   (cbtr_tpu_torch/csrc/fma_peak.cu);
 * the table kernel (cbtr_tpu_torch/csrc/tables.cu), which builds K1's, K2's
-  and K3's patch table, block bounds and neighbour table at every call of
-  theirs: twice a train step;
+  and K3's patch table, block bounds and neighbour table into one workspace
+  once a lens a trace (once a train step, once a 4K render), and the
+  ray-pack kernel in the same source, which packs each chunk's rays;
 * the fit loop (`fit_lens`, `fit_emitter_lens`: SGD and Adam, checkpoints
   and resume) on K1 and K2, and the rays made on the device (DeviceEmitter,
   OrthoGrid) with the renders that take them;
@@ -81,10 +82,19 @@ Phases:
      kernels' times; at P = 1020 both kernels against their twins and their
      lists against the host builder's
   t  the table kernel against the plain versions (`torch.equal` on the
-     patch table, the bounds at block 16 and 32, the neighbours) on the
-     robot, refined robot, split-4, split-6, dimpled solid, sphere 17 x 10
-     and ellipsoid 15 x 5; its time and the plain versions'; the device ops
-     of one `prepare_inputs` (K1, K2, K3) under torch.profiler: under 12
+     patch table, the bounds at block 16 and 32, the neighbours, K2's
+     clamped ones; the three tables views of one workspace) on the robot,
+     refined robot, split-4, split-6, dimpled solid, sphere 17 x 10 and
+     ellipsoid 15 x 5; the ray pack `torch.equal` to `pad_rays` at 262,144,
+     1,048,576 and 262,107 rays of the 4096^2 grid; each one's time (CUDA
+     events), its own device time (torch.profiler's kernel events), the host
+     time to issue it, the plain versions' and the bound (the kernels line
+     takes the ray pack at 1,048,576 rays, whose 58.7 MB outrun the 50 MB
+     L2; the 262,144-ray row is marked L2-warm); the device ops of
+     one `prepare_inputs` (K1, K2, K3: 2, the build and the pack; K1 and K2
+     on tables built once: 1); at the end, the table kernel's launches on
+     every path (a train, fit, refined or design step, a 4K render, a 4K
+     step, the emitter render, a `followers_report`): 1 each
   f  K3 against its twin at 65,536 x 450 (the bench's breakdown shape) and
      65,536 x 1800 (refined): codes on every pair, distances bit-equal on
      every cIntersect pair (the other pairs counted); its in-kernel counts
@@ -102,7 +112,7 @@ Phases:
      at the bench's start, read at its end) show K1, K3 and K4 launched
   j  the fit loop on the headline (robot, 512^2, 128^2 zero target):
      `fit_lens` 6 SGD steps at phase 4's step size with a checkpoint every 2
-     (counts reset before it: K1 12, tables 12, K2 0; the loss falls;
+     (counts reset before it: K1 12, tables 6, K2 0; the loss falls;
      ckpt_2/4/6 written); a fresh fit of 3 steps resumed to 6, and a second
      uninterrupted fit, against the first, in torch's default mode (both
      bit-equal to it) and in its deterministic mode (the resumed control
@@ -134,7 +144,7 @@ Phases:
      rebuild; loss and vertex gradient on the card against the CPU on 4096
      rays; the design gradient twice equal bit for bit and the backward
      probe on the design loss (no node differs); one design step's launches
-     (K1 2, tables 2, segment_sum 2); `fit_design` with
+     (K1 2, tables 1, ray pack 2, segment_sum 2); `fit_design` with
      stages [(5e-4, 8), (1e-4, 4)] (the best loss below the initial one) and
      its ms a step
   n  in a one-rank NCCL group (file:// store, 60 s timeout; a failure to
@@ -172,8 +182,9 @@ Phases:
      7 -> 256^2; the host path cut to 4,194,304 rays; one emitter step),
      each through its script's entry point with every count set to 0
      before and read after, equal to exactly its renders' and steps'
-     launches (K1 and the table kernel, one each a chunk a refraction; the
-     segment sum once a render and once more a chunk in a step), each
+     launches (the table kernel once a render or step, K1 and the ray pack
+     once a chunk a refraction; the segment sum once a render and once
+     more a chunk in a step), each
      script's two calls equal bit for bit (`deterministic`),
      each asserting what its JAX counterpart asserts (a finite, nonzero
      image; a finite, nonzero gradient; the two fluxes per ray within
@@ -415,17 +426,22 @@ def _check_codes_lists(cs, cc, patches, start, direction, use_aabb):
 
 def _check_tables(ct, name, patches):
     """The table kernel against the plain versions on one lens, at block 16
-    and 32: every table `torch.equal`.  Returns max |kernel - plain| (0.0)."""
+    and 32 and with K2's clamped neighbours at block 16: every table
+    `torch.equal`, the three views of one workspace.  Returns max |kernel -
+    plain| (0.0)."""
     import torch
 
     err = 0.0
-    for block_p in (16, 32):
-        got = ct.build_tables(patches, block_p)
-        want = ct.build_tables_reference(patches, block_p)
+    for block_p, clamp in ((16, False), (32, False), (16, True)):
+        got = ct.build_tables(patches, block_p, clamp)
+        want = ct.build_tables_reference(patches, block_p, clamp)
         torch.cuda.synchronize()
+        assert (got.num_patches, got.block_p, got.clamped) == (
+            want.num_patches, want.block_p, want.clamped), (name, block_p, clamp)
+        assert len({t.untyped_storage().data_ptr() for t in got}) == 1, (name, block_p)
         for table, g, w in zip(("patch_t", "bounds", "nb"), got, want):
-            assert g.dtype == w.dtype and g.shape == w.shape, (name, block_p, table)
-            assert torch.equal(g, w), (name, block_p, table, int((g != w).sum()))
+            assert g.dtype == w.dtype and g.shape == w.shape, (name, block_p, clamp, table)
+            assert torch.equal(g, w), (name, block_p, clamp, table, int((g != w).sum()))
             # empty blocks hold infinite box corners on both sides: inf - inf
             err = max(err, float((g.double() - w.double()).abs().nan_to_num(0.0).max()))
     return err
@@ -665,8 +681,10 @@ def _design_phase(dev, card, kernels):
     step = design.make_design_step(topo, screen, target, resolution=res, extent=extent)
     opt = torch.optim.Adam(p0.parameters(), lr=5e-4)
     _, step_launches = _counted(kernels, lambda: step(p0, opt, start, direction))
+    # the tables once a step (both refractions share them), one ray pack a pass
     assert step_launches == {"sweep_select": 2, "winner": 0, "sweep_codes": 0,
-                             "fma_chains": 0, "tables": 2, "segment_sum": 2}, step_launches
+                             "fma_chains": 0, "tables": 1, "pack_rays": 2,
+                             "segment_sum": 2}, step_launches
 
     stages = [(5e-4, 8), (1e-4, 4)]
     n_steps = sum(n for _, n in stages)
@@ -678,7 +696,7 @@ def _design_phase(dev, card, kernels):
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t) / n_steps * 1e3
     assert fit_launches == {"sweep_select": 2 * n_steps, "winner": 0, "sweep_codes": 0,
-                            "fma_chains": 0, "tables": 2 * n_steps,
+                            "fma_chains": 0, "tables": n_steps, "pack_rays": 2 * n_steps,
                             "segment_sum": 2 * n_steps}, fit_launches
     assert torch.isfinite(best.vertices).all() and min(losses) < losses[0], losses
     print(f"[m] design: sphere 15 x 7 at LENS_CENTER ({p0.vertices.shape[0]} vertices, "
@@ -800,7 +818,8 @@ def _parallel_phase(dev, card, kernels, scene, refined, em, cone):
         torch.cuda.synchronize()
         peak = torch.cuda.max_memory_allocated(dev)
         assert launches == {"sweep_select": 0, "winner": 0, "sweep_codes": 1,
-                            "fma_chains": 0, "tables": 1, "segment_sum": 0}, (name, launches)
+                            "fma_chains": 0, "tables": 1, "pack_rays": 1,
+                            "segment_sum": 0}, (name, launches)
         with torch.no_grad():
             want, direct = _counted(kernels, lambda: ix.intersect_rays(p, s, d))
         ok, ok_w = hit.what == ix.WHAT_INTERSECT, want.what == ix.WHAT_INTERSECT
@@ -847,7 +866,8 @@ def _parallel_phase(dev, card, kernels, scene, refined, em, cone):
 
     _, pp_launches = _counted(kernels, three_steps)
     assert pp_launches == {"sweep_select": 0, "winner": 0, "sweep_codes": 6,
-                           "fma_chains": 0, "tables": 6, "segment_sum": 6}, pp_launches
+                           "fma_chains": 0, "tables": 6, "pack_rays": 6,
+                           "segment_sum": 6}, pp_launches
     assert np.isfinite(pp_losses).all() and pp_losses[2] < pp_losses[0], pp_losses
     fixed = sharding.make_sharded_train_step(mesh2, screen, zero, resolution=128,
                                              learning_rate=0.0, patch_axis="patches")
@@ -959,7 +979,8 @@ def _drivers_phase(dev, card, kernels, scene):
     fr_s = [time.perf_counter() - t]
     fr_peak = torch.cuda.max_memory_allocated(dev) - base
     assert fr_launches == {"sweep_select": 0, "winner": 0, "sweep_codes": 1,
-                           "fma_chains": 0, "tables": 1, "segment_sum": 0}, fr_launches
+                           "fma_chains": 0, "tables": 1, "pack_rays": 1,
+                           "segment_sum": 0}, fr_launches
     triples = report["triples"]
     assert len(report["followers"]) == R and report["total_follow_candidates"] == len(triples)
     assert len(triples) > 0 and (np.diff(triples[:, 0]) >= 0).all()
@@ -1152,7 +1173,8 @@ def _scale_phase(dev, card, kernels):
     def one_pass(rays, chunk, step=False):
         chunks = -(-rays // chunk)
         return {"sweep_select": 2 * chunks, "winner": 0, "sweep_codes": 0, "fma_chains": 0,
-                "tables": 2 * chunks, "segment_sum": 1 + (2 * chunks if step else 0)}
+                "tables": 1, "pack_rays": 2 * chunks,
+                "segment_sum": 1 + (2 * chunks if step else 0)}
 
     chunk = render["chunk"]
     per_4k, per_4k_step = one_pass(n, chunk), one_pass(n, chunk, step=True)
@@ -1403,6 +1425,7 @@ def main(argv=None) -> int:
         ellipsoid_lens_scene,
         lens_model,
         robot_lens_scene,
+        scene_ortho_grid,
         sphere_lens_scene,
     )
     from cbtr_tpu_torch import native
@@ -1410,7 +1433,6 @@ def main(argv=None) -> int:
     from cbtr_tpu_torch.benchmarks import records
     from cbtr_tpu_torch.harness import kernel_ab
     from cbtr_tpu_torch.harness.determinism import divergent_sites
-    from cbtr_tpu_torch.harness.profile_step import _busy
     from cbtr_tpu_torch.ops.cuda_segment import gather_rows
     from cbtr_tpu_torch.ops import cuda_codes as cc
     from cbtr_tpu_torch.ops import cuda_sweep as cs
@@ -1517,8 +1539,9 @@ def main(argv=None) -> int:
     # is the one that descends at 64^2 rays (1e-3) scaled by (64/512)^4.
     losses, g_max, g_n, main_launches = _train(lens_model, scene, kernels, 2.5e-7)
     # the recompute's gather backward: one segment sum a refraction a step
+    # the tables once a step (both refractions share them), one ray pack a pass
     assert main_launches == {"sweep_select": 6, "winner": 0, "sweep_codes": 0,
-                             "fma_chains": 0, "tables": 6, "segment_sum": 6,
+                             "fma_chains": 0, "tables": 3, "pack_rays": 6, "segment_sum": 6,
                              "tile_block_lists": 0}, main_launches
     print(f"[4] train: 3 SGD steps, loss {losses}, |grad cp| max {g_max:.4e}, "
           f"grad n {g_n:.4e}, launches {main_launches}", flush=True)
@@ -1597,7 +1620,7 @@ def main(argv=None) -> int:
     ix.intersect_rays(rp, rs[:4096], rd[:4096])
     routed = {k: v.launches for k, v in kernels.items()}
     assert routed == {"sweep_select": 0, "winner": 1, "sweep_codes": 0,
-                      "fma_chains": 0, "tables": 1, "segment_sum": 0}, routed
+                      "fma_chains": 0, "tables": 1, "pack_rays": 1, "segment_sum": 0}, routed
     got = cw.sweep_winner(rp, rs, rd)
     ref = cw.sweep_winner_reference(rp, rs, rd)
     k2_cmp = _compare(got, ref)
@@ -1618,7 +1641,7 @@ def main(argv=None) -> int:
     torch.testing.assert_close(img, img_plain, rtol=1e-3, atol=1e-4)
     losses, g_max, g_n, large_launches = _train(lens_model, refined, kernels, 2.5e-7)
     assert large_launches == {"sweep_select": 0, "winner": 6, "sweep_codes": 0,
-                              "fma_chains": 0, "tables": 6, "segment_sum": 6,
+                              "fma_chains": 0, "tables": 3, "pack_rays": 6, "segment_sum": 6,
                               "tile_block_lists": 0}, large_launches
     r_dcp, r_dn, r_gmax = _gradient_twice(lens_model.params_from_scene(refined), refined,
                                           target)
@@ -1746,21 +1769,47 @@ def main(argv=None) -> int:
         print(line, flush=True)
     del sphere
 
-    # ---- t: the table kernel against the plain versions --------------------------
+    # ---- t: the table kernel and the ray pack against the plain versions ----------
     table_lenses["ellipsoid 15x5"] = ellipsoid_lens_scene(res=16, device=dev).patches
     assert len(table_lenses) == 7, sorted(table_lenses)
     before = ct.build_tables.launches
     tables_err = max(_check_tables(ct, name, lens) for name, lens in table_lenses.items())
-    assert ct.build_tables.launches - before == 14
+    assert ct.build_tables.launches - before == 3 * len(table_lenses)
     print(f"[t] table kernel vs plain versions (patch table, bounds at block 16 and 32, "
-          f"neighbours): torch.equal on "
+          f"neighbours, K2's clamped at block 16; one workspace a build): torch.equal on "
           f"{', '.join(f'{n} (P = {q.num_patches})' for n, q in table_lenses.items())}",
           flush=True)
-    tables_ms, tables_plain_ms = {}, {}
+    grid4k = scene_ortho_grid(4096)
+    rays_err, rays_rows = 0.0, {}
+    for n in (262144, 1 << 20, 262144 - 37):
+        gs4, gd4 = grid4k.rays_at(torch.arange(n, device=dev))
+        got, want = ct.pack_rays(gs4, gd4), cs.pad_rays(gs4, gd4)
+        torch.cuda.synchronize()
+        assert got.shape == want.shape and torch.equal(got, want), n
+        rays_err = max(rays_err, float((got - want).abs().max()))
+        if n % cs.TILE_R == 0:
+            # rays read once (24 bytes), the table written once (32 bytes a ray)
+            rays_rows[n] = dict(
+                ms=_time_ms(lambda: ct.pack_rays(gs4, gd4)),
+                plain_ms=_time_ms(lambda: cs.pad_rays(gs4, gd4)),
+                host_ms=kernel_ab.host_ms(lambda: ct.pack_rays(gs4, gd4)),
+                device=kernel_ab._per_call(lambda: ct.pack_rays(gs4, gd4)),
+                plain_device=kernel_ab._per_call(lambda: cs.pad_rays(gs4, gd4)),
+                bound=_bound_ms(0.0, 24.0 * n + 4.0 * got.numel()),
+                # inputs and output fit the 50 MB L2, where repeated calls
+                # find them: the HBM bound does not hold the time
+                l2_warm=24.0 * n + 4.0 * got.numel() < 50e6)
+        del gs4, gd4, got, want
+    print(f"[t] ray pack vs pad_rays: torch.equal at 262,144, 1,048,576 and 262,107 rays "
+          f"(padded to 262,144)", flush=True)
+    tables_ms, tables_plain_ms, tables_dev = {}, {}, {}
     for name in ("robot", "refined", "split-6"):
         lens = table_lenses[name]
         tables_ms[name] = _time_ms(lambda: ct.build_tables(lens, cs.BLOCK_P))
         tables_plain_ms[name] = _time_ms(lambda: ct.build_tables_reference(lens, cs.BLOCK_P))
+        tables_dev[name] = {"host_ms": kernel_ab.host_ms(lambda: ct.build_tables(lens, cs.BLOCK_P)),
+                            **kernel_ab._per_call(lambda: ct.build_tables(lens, cs.BLOCK_P))}
+        assert tables_dev[name]["device_ops"] == 1, (name, tables_dev[name])
     # inputs read once (60 floats and 3 ids a patch), outputs written once;
     # about 190 operations a patch (27 adds, 3 divisions, 10 norms of 9, 60
     # min/max) and 13 a patch again in its block
@@ -1768,18 +1817,45 @@ def main(argv=None) -> int:
     tables_bound = _bound_ms(
         203.0 * P, sum(x.numel() * x.element_size()
                        for x in (*patches.leaves().values(), *tables_out)))
+    k1_tables, k2_tables = ix.winner_tables(patches), ix.winner_tables(rp)
     prepare_ops = {
-        "K1": _busy(lambda: cs.prepare_inputs(patches, start, direction), True),
-        "K2": _busy(lambda: cw.prepare_inputs(rp, rs, rd), True),
-        "K3": _busy(lambda: cc.prepare_inputs(patches, start[:65536], direction[:65536]), True)}
+        "K1": kernel_ab._per_call(lambda: cs.prepare_inputs(patches, start, direction), 1),
+        "K2": kernel_ab._per_call(lambda: cw.prepare_inputs(rp, rs, rd), 1),
+        "K3": kernel_ab._per_call(
+            lambda: cc.prepare_inputs(patches, start[:65536], direction[:65536]), 1),
+        "K1 on its tables": kernel_ab._per_call(
+            lambda: cs.prepare_inputs(patches, start, direction, tables=k1_tables), 1),
+        "K2 on its tables": kernel_ab._per_call(
+            lambda: cw.prepare_inputs(rp, rs, rd, tables=k2_tables), 1)}
     prepare_ms = _time_ms(lambda: cs.prepare_inputs(patches, start, direction))
-    print(f"[t] {card} | table kernel at block 16: "
-          f"{', '.join(f'{n} {tables_ms[n]:.4f} ms (plain versions {tables_plain_ms[n]:.3f} ms)' for n in tables_ms)}"
-          f"; bound {tables_bound[0]:.6f} ms ({tables_bound[1]}); prepare_inputs "
-          f"{R} x {P} {prepare_ms:.4f} ms; device ops of one prepare_inputs: "
+    prepare_hoisted_ms = _time_ms(lambda: cs.prepare_inputs(patches, start, direction,
+                                                            tables=k1_tables))
+    for n, row in tables_dev.items():
+        row["kernel_ms"] = row["kernels_ms"]["tables_kernel"]
+    for row in rays_rows.values():
+        row["kernel_ms"] = row["device"]["kernels_ms"]["pack_rays_kernel"]
+    print(f"[t] {card} | table kernel at block 16 (CUDA events; its own device time by "
+          f"torch.profiler; host time to issue it; the plain versions): " + ", ".join(
+              f"{n} {tables_ms[n]:.4f} ms ({tables_dev[n]['kernel_ms']:.5f} ms kernel, "
+              f"{tables_dev[n]['host_ms']:.4f} ms host; plain {tables_plain_ms[n]:.3f} ms)"
+              for n in tables_ms) + f"; bound {tables_bound[0]:.6f} ms ({tables_bound[1]})",
+          flush=True)
+    print(f"[t] {card} | ray pack (the same columns; pad_rays' device ops and busy ms): "
+          + ", ".join(f"{n} rays {r['ms']:.4f} ms ({r['kernel_ms']:.5f} ms kernel, "
+                      f"{r['host_ms']:.4f} ms host, bound {r['bound'][0]:.5f} ms"
+                      f"{', L2-warm' if r['l2_warm'] else ''}); pad_rays "
+                      f"{r['plain_ms']:.4f} ms, {r['plain_device']['device_ops']:.0f} ops, "
+                      f"{r['plain_device']['busy_ms']:.5f} ms busy"
+                      for n, r in rays_rows.items()), flush=True)
+    print(f"[t] {card} | prepare_inputs {R} x {P}: {prepare_ms:.4f} ms building its tables, "
+          f"{prepare_hoisted_ms:.4f} ms on tables built once; device ops of one call: "
           f"{ {k: v['device_ops'] for k, v in prepare_ops.items()} }", flush=True)
-    assert all(0 < v["device_ops"] < 12 for v in prepare_ops.values()), prepare_ops
-    del tables_out, table_lenses
+    # a chunk on its lens's tables: the ray pack alone; building them: one more
+    assert all(v["device_ops"] == 1 for k, v in prepare_ops.items() if "tables" in k), prepare_ops
+    assert all(v["device_ops"] == 2 for k, v in prepare_ops.items() if "tables" not in k), \
+        prepare_ops
+    table_lenses_p = {n: lens.num_patches for n, lens in table_lenses.items()}
+    del tables_out, table_lenses, k1_tables, k2_tables, grid4k
 
     # ---- f: K3 against its twin; the staged winners ----------------------------
     k3_rows = {}
@@ -1909,7 +1985,8 @@ def main(argv=None) -> int:
             scene, target, 6, checkpoint_dir=full, checkpoint_every=2,
             learning_rate=sgd_lr))
         assert fit_launches == {"sweep_select": 12, "winner": 0, "sweep_codes": 0,
-                                "fma_chains": 0, "tables": 12, "segment_sum": 12}, fit_launches
+                                "fma_chains": 0, "tables": 6, "pack_rays": 12,
+                                "segment_sum": 12}, fit_launches
         assert l_full[-1] < l_full[0], l_full
         ckpts = sorted(os.listdir(full))
         assert ckpts == ["ckpt_2.npz", "ckpt_4.npz", "ckpt_6.npz"], ckpts
@@ -1973,7 +2050,8 @@ def main(argv=None) -> int:
     (_, l_big), big_launches = _counted(kernels, lambda: fit_lens(
         refined, target, 3, learning_rate=sgd_lr))
     assert big_launches == {"sweep_select": 0, "winner": 6, "sweep_codes": 0,
-                            "fma_chains": 0, "tables": 6, "segment_sum": 6}, big_launches
+                            "fma_chains": 0, "tables": 3, "pack_rays": 6,
+                            "segment_sum": 6}, big_launches
     assert l_big[-1] < l_big[0], l_big
     big_ms = {"sgd": _fit_step_ms(fit_lens, refined, target, None, sgd_lr),
               "adam": _fit_step_ms(fit_lens, refined, target, "adam", adam_lr)}
@@ -1983,7 +2061,7 @@ def main(argv=None) -> int:
           f"{big_ms['sgd']:.3f} ms, Adam {big_ms['adam']:.3f} ms", flush=True)
 
     # ---- l: rays made on the device ---------------------------------------------
-    from cbtr_tpu_torch.models import params_from_scene, scene_ortho_grid, scenes
+    from cbtr_tpu_torch.models import params_from_scene, scenes
     from cbtr_tpu_torch.models.fit import emitter_rays
     from cbtr_tpu_torch.render import camera
     from cbtr_tpu_torch.render import render as rd
@@ -2171,6 +2249,20 @@ def main(argv=None) -> int:
         print("[i] no --against DIR: the comparison with another checkout is not run",
               flush=True)
 
+    # the table kernel's launches on every path (counts set to 0 just before
+    # each): once a lens a trace, whatever its chunks
+    table_launches = {
+        "train step": main_launches["tables"] / 3,
+        "fit step": fit_launches["tables"] / 6,
+        "refined step": large_launches["tables"] / 3,
+        "design step": design_out["launches"]["tables"] / design_out["steps"],
+        "4K render": scale_out["render"]["launches_per_render"]["tables"],
+        "4K step": scale_out["train"]["launches_per_step"]["tables"],
+        "emitter render": scale_out["emitter"]["device_path"]["launches_per_render"]["tables"],
+        "followers_report": drivers_out["launches"]["tables"]}
+    print(f"[t] {card} | table kernel launches by path: {table_launches}", flush=True)
+    assert all(v == 1 for v in table_launches.values()), table_launches
+
     print(f"chip_smoke took {time.perf_counter() - t_script:.1f} s after the imports",
           flush=True)
     print(json.dumps({"kernels": [
@@ -2260,14 +2352,56 @@ def main(argv=None) -> int:
             "launches_per_design_step":
                 design_out["launches"]["tables"] / design_out["steps"],
             "launches_per_patch_sharded_step": par_out["launches"]["tables"] / 3,
+            "launches_in_followers_report": drivers_out["launches"]["tables"],
+            "launches_by_path": table_launches,
             "max_abs_err": tables_err,
             "ms": tables_ms["robot"],
             "plain_ms": tables_plain_ms["robot"],
             "bound_ms": tables_bound[0],
             "bound_by": tables_bound[1],
             "library_ms": None,
+            "kernel_only_ms": tables_dev["robot"]["kernel_ms"],
+            "host_ms": tables_dev["robot"]["host_ms"],
+            "shapes": {n: {"patches": table_lenses_p[n], "ms": tables_ms[n],
+                           "kernel_only_ms": tables_dev[n]["kernel_ms"],
+                           "host_ms": tables_dev[n]["host_ms"],
+                           "plain_ms": tables_plain_ms[n]} for n in tables_ms},
             "prepare_inputs_ms": prepare_ms,
-            "prepare_inputs_device_ops": prepare_ops["K1"]["device_ops"],
+            "prepare_inputs_on_tables_ms": prepare_hoisted_ms,
+            "prepare_inputs_device_ops": {k: v["device_ops"] for k, v in prepare_ops.items()},
+        },
+        {
+            "name": "pack_rays",
+            "route": "cuda",
+            "source": "cbtr_tpu_torch/csrc/tables.cu",
+            "replaces": "cbtr_tpu/ops/pallas_sweep.py:810 rays.T (an XLA transpose, no "
+                        "Pallas kernel)",
+            "launches": main_launches["pack_rays"],
+            "launches_per_step": main_launches["pack_rays"] / 3,
+            "launches_per_fit_step": fit_launches["pack_rays"] / 6,
+            "launches_per_4k_render": scale_out["render"]["launches_per_render"]["pack_rays"],
+            "launches_per_4k_step": scale_out["train"]["launches_per_step"]["pack_rays"],
+            "launches_per_4k_emitter_render":
+                scale_out["emitter"]["device_path"]["launches_per_render"]["pack_rays"],
+            "launches_per_design_step":
+                design_out["launches"]["pack_rays"] / design_out["steps"],
+            "max_abs_err": rays_err,
+            # a 4K chunk's 58.7 MB outrun the 50 MB L2; the 262,144-ray row's
+            # 14.7 MB stay there between calls, under the bound at the HBM rate
+            "rays": 1 << 20,
+            "ms": rays_rows[1 << 20]["ms"],
+            "plain_ms": rays_rows[1 << 20]["plain_ms"],
+            "bound_ms": rays_rows[1 << 20]["bound"][0],
+            "bound_by": rays_rows[1 << 20]["bound"][1],
+            "library_ms": None,
+            "kernel_only_ms": rays_rows[1 << 20]["kernel_ms"],
+            "host_ms": rays_rows[1 << 20]["host_ms"],
+            "shapes": {n: {"ms": r["ms"], "kernel_only_ms": r["kernel_ms"],
+                           "host_ms": r["host_ms"], "plain_ms": r["plain_ms"],
+                           "plain_device_ops": r["plain_device"]["device_ops"],
+                           "plain_busy_ms": r["plain_device"]["busy_ms"],
+                           "bound_ms": r["bound"][0], "l2_warm": r["l2_warm"]}
+                       for n, r in rays_rows.items()},
         },
         {
             "name": "segment_sum",

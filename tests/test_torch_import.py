@@ -82,6 +82,7 @@ assert cs._libraries == {}       # no kernel library built or loaded
 assert cs.sweep_select.launches == 0 and cw.sweep_winner.launches == 0
 assert cc.sweep_codes_cuda.launches == 0 and fp.fma_chains.launches == 0
 assert ct.build_tables.launches == 0 and sg.segment_sum.launches == 0
+assert ct.pack_rays.launches == 0
 assert not dist.is_initialized()  # importing the parallel layer starts no group
 assert nat._lib is None and nat.build_error() is None   # no g++ run, nothing loaded
 if os.path.exists("/proc/self/maps"):

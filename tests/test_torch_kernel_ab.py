@@ -152,3 +152,51 @@ def test_stage_names_are_checked_in_this_checkout_only(tmp_path, monkeypatch):
     monkeypatch.setattr(cbtr_tpu_torch, "__file__",
                         str(tmp_path / "cbtr_tpu_torch" / "__init__.py"))
     assert not kernel_ab._this_package()
+
+
+def test_op_name_tells_torch_kernels_apart():
+    """Unknown kernels are filed by their name up to the parameters, without
+    `void` and `at::native::`: a fill and a copy stay apart (their first 40
+    characters did not); the port's kernels by their own names."""
+    fill = ("void at::native::vectorized_elementwise_kernel<4, at::native::FillFunctor<float>, "
+            "std::array<char*, 1ul> >(int, at::native::FillFunctor<float>, std::array<char*, 1ul>)")
+    copy = ("void at::native::elementwise_kernel<128, 2, at::native::gpu_kernel_impl_nocast<"
+            "at::native::direct_copy_kernel_cuda(at::TensorIteratorBase&)::{lambda()#3}")
+    assert kernel_ab._op_name(fill).startswith("vectorized_elementwise_kernel<4, FillFunctor")
+    assert kernel_ab._op_name(copy).startswith("elementwise_kernel<128, 2, gpu_kernel_impl")
+    assert kernel_ab._op_name(fill) != kernel_ab._op_name(copy)
+    assert len(kernel_ab._op_name(fill)) <= 72
+    assert set(kernel_ab.TABLE_KERNELS) <= set(kernel_ab.KERNEL_NAMES)
+
+
+def test_per_call_divides_one_session_by_its_calls(monkeypatch):
+    """`_per_call` profiles `calls` calls in one session (by
+    `device_kernels`' rule) and reports ops, busy and device ms by kernel
+    per call, the port's kernels under their own names."""
+    name = "(anonymous namespace)::tables_kernel(float const*, float const*, int, int, int)"
+    fake = _Session([[name] * 20] * 2)
+    monkeypatch.setattr(torch.profiler, "profile", fake)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    calls = []
+    row = kernel_ab._per_call(lambda: calls.append(1), 20)
+    assert len(calls) == 20 * 3          # the warm-up, then two sessions
+    assert row["device_ops"] == 1.0 and row["profiler_sessions"] == 2
+    assert row["busy_ms"] == pytest.approx(20 * 5 / 1e3 / 20)
+    assert row["kernels_ms"] == {"tables_kernel": pytest.approx(5 / 1e3)}
+
+
+@pytest.mark.parametrize("flags, want", [({}, []), ({"segment_sum_only": True},
+                                                    ["--segment-sum-only"]),
+                                         ({"tables_only": True}, ["--tables-only"])])
+def test_run_checkout_passes_the_probe_its_rows(monkeypatch, flags, want):
+    """The probe process gets --segment-sum-only or --tables-only as asked,
+    and its last line is the result."""
+    seen = []
+
+    def run(args, **kwargs):
+        seen.append(args)
+        return types.SimpleNamespace(returncode=0, stdout='[probe] x\n{"row": {}}\n', stderr="")
+
+    monkeypatch.setattr(kernel_ab.subprocess, "run", run)
+    assert kernel_ab.run_checkout("/nowhere", **flags) == {"row": {}}
+    assert seen[0][4:] == want

@@ -19,11 +19,12 @@ def test_profile_step_sees_every_stage_on_cpu():
     assert [getattr(mod, attr) for _, mod, attr in profile_step.STAGES] == originals
     assert (result["rays"], result["patches"]) == (256, 450)
     calls = {label: s["calls"] for label, s in result["stages_forward"].items()}
-    # two refractions, each one winner search and one recompute; CPU tensors
-    # run the kernel's plain twin, so K1's tables and launch are not reached
+    # two refractions, each one winner search and one recompute, on one
+    # table build (its plain version on the CPU); CPU tensors run the
+    # kernel's plain twin, so the ray pack and K1's launch are not reached;
     # the splat is the matrix product at this size: no segment sum
     assert calls == {"trace_through_lens": 1, "recompute_winner": 2,
-                     "winner_search": 2, "k1_tables": 0, "k1_launch": 0,
+                     "winner_search": 2, "tables": 1, "k1_rays": 0, "k1_launch": 0,
                      "screen_hits": 1, "splat_bilinear": 1, "segment_sum": 0}
     assert all(s["device_ms"] is None for s in result["stages_forward"].values())
     assert result["step_peak_gib"] is None
@@ -44,6 +45,8 @@ def test_profile_step_chunks_the_rays_on_cpu():
     calls = {label: s["calls"] for label, s in result["stages_forward"].items()}
     assert calls["winner_search"] == 2 * 4 and calls["recompute_winner"] == 2 * 4, calls
     assert calls["screen_hits"] == 1 and calls["splat_bilinear"] == 1, calls
+    # the tables once a trace, whatever the chunk count
+    assert calls["tables"] == 1, calls
     assert 0.0 < result["listed_fraction"] <= 1.0
 
 

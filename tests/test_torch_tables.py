@@ -277,9 +277,9 @@ def test_prepare_inputs_read_build_tables(port_cases, prepare, block_p, monkeypa
     calls = []
     build = ct.build_tables
 
-    def counted(patches, block):
+    def counted(patches, block, **kwargs):
         calls.append(block)
-        return build(patches, block)
+        return build(patches, block, **kwargs)
 
     monkeypatch.setattr(ct, "build_tables", counted)
     monkeypatch.setattr(cs, "tile_block_lists", lambda *a, **k: calls.append("lists"))
