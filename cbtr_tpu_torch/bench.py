@@ -80,6 +80,7 @@ from .models import (
 from .models.fit import emitter_rays
 from .models.scenes import robot_stl_path
 from .ops import cuda_codes as cc
+from .ops import cuda_recompute as cr
 from .ops import cuda_segment as sg
 from .ops import cuda_sweep as cs
 from .ops import cuda_winner as cw
@@ -98,6 +99,7 @@ WRAPPERS = {
     "sweep_codes": cc.sweep_codes_cuda,
     "fma_chains": fp.fma_chains,
     "segment_sum": sg.segment_sum,
+    **cr.COUNTED,
 }
 
 

@@ -1,7 +1,7 @@
 """Two checkouts of the port timed against each other on the card, in turns.
 
     python -m cbtr_tpu_torch.harness.kernel_ab [--against DIR] [--rounds N]
-                                               [--segment-sum-only | --tables-only]
+        [--segment-sum-only | --tables-only | --recompute-only]
 
 `probe` times a checkout's winner search at the main path's shapes: K1 and
 K2 (262,144 x 450 at both refractions of the headline step, 262,144 x 1800
@@ -28,7 +28,12 @@ gradients.  First, the segment sum
 a 4K render's splat and a seeded splat (`segment_sum_inputs`): a digest of
 its output, its time, device ops, busy ms and peak memory.  With
 --segment-sum-only the probe stops there (and the cull rows are left out);
---tables-only runs the table, ray and `prepare_inputs` rows alone.
+--tables-only runs the table, ray and `prepare_inputs` rows alone.  The
+recompute (`recompute_rows`, `intersect.recompute_winner` forward alone and
+with its backward, at the headline, the refined robot and a 4K chunk) comes
+after the tables, with a digest of its fields (`same_winners`) and of its
+gradients (`reproducible_gradients` within a side, `same_gradients` across
+the sides); --recompute-only runs it alone.
 
 --against DIR names the root of another checkout of the repository, e.g.
 an earlier commit unpacked by `git archive <commit> | tar -x -C DIR` into an
@@ -228,7 +233,9 @@ SEGMENT_KERNELS = ("Memset", "tile_histogram", "scan_digits", "tile_scatter", "s
 # the table kernel and the ray-pack kernel (csrc/tables.cu), by the names
 # `device_kernels` files their device time under
 TABLE_KERNELS = ("tables_kernel", "pack_rays_kernel")
-KERNEL_NAMES = SEGMENT_KERNELS + TABLE_KERNELS
+# the recompute's forward and backward kernels (csrc/recompute.cu)
+RECOMPUTE_KERNELS = ("recompute_forward_kernel", "recompute_backward_kernel")
+KERNEL_NAMES = SEGMENT_KERNELS + TABLE_KERNELS + RECOMPUTE_KERNELS
 
 
 # the kernels every segment sum of this checkout launches (a fold at each level)
@@ -371,6 +378,75 @@ def segment_sum_rows(device) -> dict:
     return out
 
 
+# the recompute at the main path's shapes: (label, robot_lens_scene arguments
+# or None for the first 1,048,576 rays of the 4096^2 grid on the robot)
+RECOMPUTE_SHAPES = (("recompute 262,144 x 450 (headline, K1's winners)", {"res": 512}),
+                    ("recompute 262,144 x 1800 (refined, K2's winners)",
+                     {"res": 512, "refine": True}),
+                    ("recompute 1,048,576 x 450 (4K chunk, K1's winners)", None))
+
+
+def recompute_rows(device) -> dict:
+    """{label: numbers}: `intersect.recompute_winner` (the entry point every
+    checkout has) at RECOMPUTE_SHAPES on the winners of the checkout's own
+    winner search, forward alone (no grad) and forward with the backward of
+    a seeded cotangent of the point, normal and cos_incidence: a digest of
+    the forward's fields (`digest`: the same in every checkout whose forward
+    is bit-equal) and of the gradients (`grad_digest`: the same within a
+    checkout), the time of each (CUDA events), its device ops and device-busy
+    ms (torch.profiler) and the peak memory above the inputs of the forward
+    with its backward."""
+    from cbtr_tpu_torch.harness.profile_step import _busy
+    from cbtr_tpu_torch.models import scene_ortho_grid
+
+    out = {}
+    for label, kw in RECOMPUTE_SHAPES:
+        sc = robot_lens_scene(device=device, **(kw or {"res": 1}))
+        if kw is None:
+            s, d = scene_ortho_grid(4096).rays_at(torch.arange(1 << 20, device=device))
+        else:
+            s, d = sc.start, sc.direction
+        patches = sc.patches
+        search = cs.sweep_select if patches.num_patches <= cs._FUSED_MAX_P else cw.sweep_winner
+        with torch.no_grad():
+            any_hit, win, _ = search(patches, s, d)
+        gen = torch.Generator(device=device).manual_seed(0)
+        g_pt, g_n = (torch.randn((s.shape[0], 3), generator=gen, device=device)
+                     for _ in range(2))
+        g_cos = torch.randn(s.shape[0], generator=gen, device=device)
+        leaves = patches.map(lambda t: t.detach().requires_grad_(t.is_floating_point()))
+
+        def forward():
+            with torch.no_grad():
+                return ix.recompute_winner(patches, s, d, any_hit, win)
+
+        def step():
+            for t in leaves.leaves().values():
+                t.grad = None
+            hit = ix.recompute_winner(leaves, s, d, any_hit, win)
+            ok = (hit.what == ix.WHAT_INTERSECT)[:, None]
+            ((torch.where(ok, hit.point, 0.0) * g_pt).sum()
+             + (torch.where(ok, hit.normal, 0.0) * g_n).sum()
+             + (torch.where(ok[:, 0], hit.cos_incidence, 0.0) * g_cos).sum()).backward()
+            return [t.grad for k, t in leaves.leaves().items() if k != "neighbours"]
+
+        row = {"digest": digest(*forward()), "grad_digest": digest(*step())}
+        row["forward_ms"] = time_ms(forward, windows=5, inner=2)
+        row["step_ms"] = time_ms(step, windows=5, inner=1)
+        row["forward_profile"] = _busy(forward, True)
+        row["step_profile"] = _busy(step, True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        step()
+        torch.cuda.synchronize()
+        row["step_peak_gib"] = (torch.cuda.max_memory_allocated() - before) / 2**30
+        out[label] = row
+        del sc, s, d, leaves, patches
+        torch.cuda.empty_cache()
+    return out
+
+
 def prepare_rows(device) -> dict:
     """{label: numbers}: `prepare_inputs` alone at TABLE_SHAPES, its time and
     its device ops, busy ms and device ms by kernel per call."""
@@ -389,14 +465,17 @@ def prepare_rows(device) -> dict:
     return out
 
 
-def probe(device, segment_sum_only: bool = False, tables_only: bool = False) -> dict:
+def probe(device, segment_sum_only: bool = False, tables_only: bool = False,
+          recompute_only: bool = False) -> dict:
     """{label: numbers} of this process's package at every shape (module
-    docstring), or at the segment sum's only, or at the tables' only; scenes
-    are built one at a time."""
+    docstring), or at the segment sum's only, or at the tables' only, or at
+    the recompute's only; scenes are built one at a time."""
     from cbtr_tpu_torch.harness.profile_step import _busy
 
     if tables_only:
         return {**table_rows(device), **prepare_rows(device)}
+    if recompute_only:
+        return recompute_rows(device)
     out = segment_sum_rows(device)
     if segment_sum_only:
         return out
@@ -418,6 +497,7 @@ def probe(device, segment_sum_only: bool = False, tables_only: bool = False) -> 
         torch.cuda.empty_cache()
     out.update(table_rows(device))
     out.update(prepare_rows(device))
+    out.update(recompute_rows(device))
     for label, kw in STEP_SCENES:
         sc = robot_lens_scene(res=512, device=device, **kw)
         target = torch.zeros((128, 128), dtype=torch.float32, device=device)
@@ -442,11 +522,13 @@ def probe(device, segment_sum_only: bool = False, tables_only: bool = False) -> 
     return out
 
 
-def run_checkout(root: str, segment_sum_only: bool = False, tables_only: bool = False) -> dict:
+def run_checkout(root: str, segment_sum_only: bool = False, tables_only: bool = False,
+                 recompute_only: bool = False) -> dict:
     """`probe` in a fresh process that imports the package of the checkout
     at `root`; raises if it fails."""
     extra = (["--segment-sum-only"] if segment_sum_only else []) + (
-        ["--tables-only"] if tables_only else [])
+        ["--tables-only"] if tables_only else []) + (
+        ["--recompute-only"] if recompute_only else [])
     proc = subprocess.run([sys.executable, "-c", _RUN_PROBE, os.path.abspath(__file__), *extra],
                           cwd=root, capture_output=True, text=True, timeout=1800)
     if proc.returncode != 0:
@@ -469,18 +551,23 @@ def merge(results) -> list[dict]:
                    for d in side.pop("digest", [])}
         if digests:
             row["same_winners"] = len(digests) == 1
+        grads = [set(side.pop("grad_digest")) for side in row.values()
+                 if isinstance(side, dict) and "grad_digest" in side]
+        if grads:
+            row["reproducible_gradients"] = all(len(g) == 1 for g in grads)
+            row["same_gradients"] = len(set().union(*grads)) == 1
     return list(rows.values())
 
 
 def compare_checkouts(against: str = "", rounds: int = 1, segment_sum_only: bool = False,
-                      tables_only: bool = False) -> list[dict]:
+                      tables_only: bool = False, recompute_only: bool = False) -> list[dict]:
     """This checkout, alone or in turns with the one at `against` (module
     docstring), merged by `merge`."""
     order = [("this", THIS_ROOT)]
     if against:
         order = [("against", against), ("this", THIS_ROOT), ("this", THIS_ROOT),
                  ("against", against)] * rounds
-    return merge([(side, run_checkout(root, segment_sum_only, tables_only))
+    return merge([(side, run_checkout(root, segment_sum_only, tables_only, recompute_only))
                   for side, root in order])
 
 
@@ -518,6 +605,8 @@ def main(argv=None) -> int:
                     help="time the segment sum's rows alone")
     ap.add_argument("--tables-only", action="store_true",
                     help="time the table, ray and prepare_inputs rows alone")
+    ap.add_argument("--recompute-only", action="store_true",
+                    help="time the recompute rows alone")
     ap.add_argument("--probe", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.probe:
@@ -529,13 +618,13 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     if args.probe:
         print(json.dumps(probe(torch.device("cuda", 0), args.segment_sum_only,
-                               args.tables_only)), flush=True)
+                               args.tables_only, args.recompute_only)), flush=True)
         return 0
     name = card()
     for row in compare_checkouts(args.against, args.rounds, args.segment_sum_only,
-                                 args.tables_only):
+                                 args.tables_only, args.recompute_only):
         print(f"[ab] {name} | {json.dumps(row)}", flush=True)
-    if args.segment_sum_only or args.tables_only:
+    if args.segment_sum_only or args.tables_only or args.recompute_only:
         return 0
     for row in cull_rows(torch.device("cuda", 0)):
         print(f"[ab] {name} | {json.dumps(row)}", flush=True)

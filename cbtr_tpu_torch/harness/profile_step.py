@@ -9,8 +9,10 @@ rays, 128 x 128 image, zero target):
   clock, no synchronisation), mean over --runs forwards;
 * the forward with grad and the backward alone (CUDA events, median of
   --runs), the same stages inside the backward (the recompute re-run by a
-  chunk's checkpoint, the segment sums of the gathers' gradients), and the
-  step's peak device memory;
+  chunk's checkpoint, the recompute's backward kernel, the segment sums of
+  its row gradients), and the step's peak device memory; the recompute's
+  forward and backward kernels are stages of their own
+  (`cuda_recompute.launch_forward`, `launch_backward`: on the card only);
 * torch.profiler over one forward and one step: device ops run and the
   device's busy time (the union of their intervals), set against the
   unprofiled wall time; the same, with the device ms by kernel, per call
@@ -47,6 +49,7 @@ import torch
 
 from ..benchmarks import records
 from ..models import lens_model, robot_lens_scene
+from ..ops import cuda_recompute as cr
 from ..ops import cuda_segment as sg
 from ..ops import cuda_sweep as cs
 from ..ops import cuda_tables as ct
@@ -65,8 +68,11 @@ STAGES = (
     ("k1_launch", cs, "launch"),
     ("screen_hits", rd, "screen_hits"),
     ("splat_bilinear", rd, "splat_bilinear"),
-    # the fixed-order sums: the scatter splat's, the gathers' gradients
+    # the fixed-order sums: the scatter splat's, the recompute's row gradients
     ("segment_sum", sg, "_sum"),
+    # the recompute's two kernels (on the card; its plain version on the CPU)
+    ("recompute_forward", cr, "launch_forward"),
+    ("recompute_backward", cr, "launch_backward"),
 )
 
 

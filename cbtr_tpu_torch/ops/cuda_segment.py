@@ -5,9 +5,11 @@ its plain PyTorch version and the two autograd Functions built on them.
 num_segments rows by their ids [N]; ids outside [0, num_segments) are
 dropped (the JAX splat's `mode="drop"`).  Two sums of the port run through
 it, both scatter-adds in the JAX package that XLA runs in a fixed order:
-the backward of the recompute's [R, 60] row gather (`gather_rows`, in
-place of `torch.index_select`; cbtr_tpu/ops/intersect.py:331 `jnp.take`)
-and the splat's scatter path (cbtr_tpu/render/render.py:95 `img.at[].add`).
+the recompute's table gradient, its per-ray [R, 60] row gradients added
+into the table's rows (cbtr_tpu/ops/intersect.py:331 `jnp.take`'s
+gradient: the recompute kernels' backward, and `gather_rows`, the plain
+recompute's row gather in place of `torch.index_select`), and the splat's
+scatter path (cbtr_tpu/render/render.py:95 `img.at[].add`).
 On the card torch's `index_add_` adds with float atomics, so its result
 moves with thread scheduling; this sum does not.
 

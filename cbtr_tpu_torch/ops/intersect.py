@@ -17,7 +17,9 @@ The op runs in three stages:
    patch id on ties.
 3. **recompute** (differentiable): re-evaluate the single winning patch per
    ray for point/normal/bary/cos.  Gradients flow only through this O(rays)
-   stage.
+   stage.  On the GPU its forward and backward are the two kernels of
+   csrc/recompute.cu (`cuda_recompute`); `_candidates_core` below is their
+   plain version.
 
 Stages 1+2 are `cuda_sweep.sweep_select` (K1, P <= 1024) or
 `cuda_winner.sweep_winner` (K2, P > 1024): a CUDA kernel for tensors on the
@@ -41,7 +43,7 @@ from torch.utils.checkpoint import checkpoint
 from .. import geom
 from ..config import DEFAULT as CFG
 from ..bezier.patches import BezierPatches, interpolate, patch_normal
-from .cuda_segment import gather_rows
+from . import cuda_recompute
 
 # BezierIntersection::What (reference/bezierTriangle.h:8-14)
 WHAT_FOLLOW_SIDE0 = 0
@@ -276,31 +278,27 @@ def select_candidates(code, dist, neighbours):
 
 
 def recompute_winner(patches: BezierPatches, start, direction, any_hit, win,
-                     with_check: bool = False):
+                     with_check: bool = False, backend: str = "auto"):
     """Differentiable re-evaluation of each ray's winning patch.
+
+    start, direction [R, 3]; any_hit [R] bool, win [R] i32 from the winner
+    search.  backend "auto": CUDA tensors run the recompute kernels
+    (`cuda_recompute.recompute`: one forward launch, one backward launch and
+    the segment sum of the row gradients into the table; a failed build or
+    launch raises), CPU tensors their plain version; "plain": the plain
+    version (`cuda_recompute.recompute_reference`: one [R, 60] row gather
+    from the packed table, then `patch_candidates`) on any device.
 
     with_check=True additionally returns the number of rays whose winner the
     sweep accepted but the recompute rejects (``what != cIntersect``); a
     nonzero count means the sweep and the recompute disagree on arithmetic.
     """
-    # ONE [R, 60] gather from the packed float table instead of six per-leaf
-    # gathers; its backward is one fixed-order segment sum of the rows into
-    # the table (cuda_segment.gather_rows), not six atomic scatter-adds
+    if backend not in BACKENDS:
+        raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
     idx = win.clamp_min(0).to(torch.int64)
-    rows = BezierPatches.from_packed_f32(
-        gather_rows(patches.packed_f32(), idx),
-        torch.zeros(idx.shape + (3,), dtype=torch.int32, device=idx.device),
-    )
-    what_w, dist_w, pt, n, b, cos_w = patch_candidates(rows, start, direction, False)
-    hit = RayHit(
-        what=torch.where(any_hit, WHAT_INTERSECT, WHAT_NONE).to(torch.int32),
-        distance=torch.where(any_hit, dist_w, _BIG),
-        point=pt,
-        normal=n,
-        bary=b,
-        cos_incidence=cos_w,
-        patch=torch.where(any_hit, win, -1).to(torch.int32),
-    )
+    run = (cuda_recompute.recompute_reference if backend == "plain"
+           else cuda_recompute.recompute)
+    hit, what_w = run(patches.packed_f32(), idx, start, direction, any_hit, win)
     if with_check:
         return hit, int((any_hit & (what_w != WHAT_INTERSECT)).sum())
     return hit
@@ -426,7 +424,7 @@ def _winner_chunk(patches: BezierPatches, start, direction, backend: str, tables
 
 def _intersect_chunk(patches: BezierPatches, start, direction, backend: str, tables=None):
     any_hit, win = _winner_chunk(patches, start, direction, backend, tables=tables)
-    return recompute_winner(patches, start, direction, any_hit, win)
+    return recompute_winner(patches, start, direction, any_hit, win, backend=backend)
 
 
 def intersect_rays(patches: BezierPatches, start, direction,
@@ -458,8 +456,8 @@ def intersect_rays(patches: BezierPatches, start, direction,
         for r0 in range(0, R, chunk_size):
             sc, dc = s[r0:r0 + chunk_size], d[r0:r0 + chunk_size]
             ah, w = _winner_chunk(patches, sc, dc, backend, tables=tables)
-            chunks.append(checkpoint(recompute_winner, patches, sc, dc, ah, w,
-                                     use_reentrant=False))
+            chunks.append(checkpoint(recompute_winner, patches, sc, dc, ah, w, False,
+                                     backend, use_reentrant=False))
         hit = RayHit(*(torch.cat(fields, dim=0) for fields in zip(*chunks)))
     else:
         hit = _intersect_chunk(patches, s, d, backend, tables=tables)

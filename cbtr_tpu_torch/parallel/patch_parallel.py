@@ -82,6 +82,6 @@ def intersect_rays_patch_sharded(patches: BezierPatches, start, direction, mesh,
         code = _gather_rows(code.T, group, n)[:P].T                  # [R, P]
         dist_ = _gather_rows(dist_.T, group, n)[:P].T
         any_hit, win, _ = select_candidates(code, dist_, patches.neighbours)
-    hit = recompute_winner(patches, s, d, any_hit, win)
+    hit = recompute_winner(patches, s, d, any_hit, win, backend=backend)
     batch = start.shape[:-1]
     return RayHit(*(x.reshape(batch + x.shape[1:]) for x in hit))

@@ -35,9 +35,13 @@ checks them:
   render, train step and emitter render through K1 and the table kernel,
   and the K1/K2 time decomposition;
 * the segment-sum kernel (cbtr_tpu_torch/csrc/segment_sum.cu), the fixed-
-  order sum behind the recompute's gather backward on every train, fit and
+  order sum behind the recompute's table gradient on every train, fit and
   design path and behind the scatter splat of every 4K path, which makes
-  every gradient and image reproducible bit for bit in torch's default mode.
+  every gradient and image reproducible bit for bit in torch's default mode;
+* the recompute kernels (cbtr_tpu_torch/csrc/recompute.cu), the
+  differentiable re-evaluation of each ray's winning patch on every path:
+  one forward launch a chunk a refraction, and in a backward one launch of
+  its own unrolled-Newton reverse sweep.
 
 Phases:
 
@@ -213,6 +217,23 @@ Phases:
      its peak memory above its inputs, beside torch's `index_add_` (atomic,
      and in the deterministic mode), the plain version's and its bound; at
      most 10 device ops at the headline
+  r  the recompute kernels against their plain versions at the headline
+     (262,144 x 450 on K1's winners), the refined robot (262,144 x 1800 on
+     K2's) and a 4K chunk (1,048,576 x 450 on K1's): every forward field
+     torch.equal to the twin's; the backward's row, start and direction
+     gradients torch.equal to `recompute_adjoint_reference` (cotangents on
+     the hits, and on every ray) and to a second run, and within
+     tests/test_torch_recompute.py (a)'s bar of autograd through the twin;
+     each kernel's time, its own device time, its plain version's,
+     autograd's through the twin, its peak memory and its bound (the plain
+     versions' f32 operations, counted on the CPU, over the f32 peak, or its
+     bytes over the HBM rate); the device ops of `recompute_winner` forward
+     and with its backward on the kernels.  It runs after phase t, before
+     any long profiler session (a short call's records can go missing after
+     one); at the end, every path's recompute launches (a train, fit,
+     refined or design step 2 forward and 2 backward; a 4K render 32
+     forward; a 4K step 64 forward, the checkpoints' 32 among them, and 32
+     backward)
   i  with --against DIR (the root of another checkout, e.g. an earlier
      commit unpacked by `git archive`): that checkout against this one, each
      in fresh processes, in turns (DIR, this, this, DIR): K1, K2 and K3
@@ -684,7 +705,8 @@ def _design_phase(dev, card, kernels):
     # the tables once a step (both refractions share them), one ray pack a pass
     assert step_launches == {"sweep_select": 2, "winner": 0, "sweep_codes": 0,
                              "fma_chains": 0, "tables": 1, "pack_rays": 2,
-                             "segment_sum": 2}, step_launches
+                             "segment_sum": 2, "recompute_forward": 2,
+                             "recompute_backward": 2}, step_launches
 
     stages = [(5e-4, 8), (1e-4, 4)]
     n_steps = sum(n for _, n in stages)
@@ -697,7 +719,8 @@ def _design_phase(dev, card, kernels):
     step_ms = (time.perf_counter() - t) / n_steps * 1e3
     assert fit_launches == {"sweep_select": 2 * n_steps, "winner": 0, "sweep_codes": 0,
                             "fma_chains": 0, "tables": n_steps, "pack_rays": 2 * n_steps,
-                            "segment_sum": 2 * n_steps}, fit_launches
+                            "segment_sum": 2 * n_steps, "recompute_forward": 2 * n_steps,
+                            "recompute_backward": 2 * n_steps}, fit_launches
     assert torch.isfinite(best.vertices).all() and min(losses) < losses[0], losses
     print(f"[m] design: sphere 15 x 7 at LENS_CENTER ({p0.vertices.shape[0]} vertices, "
           f"{built.num_patches} patches), {n_rays} cone-lattice rays (13 deg), {res}^2 "
@@ -819,7 +842,8 @@ def _parallel_phase(dev, card, kernels, scene, refined, em, cone):
         peak = torch.cuda.max_memory_allocated(dev)
         assert launches == {"sweep_select": 0, "winner": 0, "sweep_codes": 1,
                             "fma_chains": 0, "tables": 1, "pack_rays": 1,
-                            "segment_sum": 0}, (name, launches)
+                            "segment_sum": 0, "recompute_forward": 1,
+                            "recompute_backward": 0}, (name, launches)
         with torch.no_grad():
             want, direct = _counted(kernels, lambda: ix.intersect_rays(p, s, d))
         ok, ok_w = hit.what == ix.WHAT_INTERSECT, want.what == ix.WHAT_INTERSECT
@@ -867,7 +891,8 @@ def _parallel_phase(dev, card, kernels, scene, refined, em, cone):
     _, pp_launches = _counted(kernels, three_steps)
     assert pp_launches == {"sweep_select": 0, "winner": 0, "sweep_codes": 6,
                            "fma_chains": 0, "tables": 6, "pack_rays": 6,
-                           "segment_sum": 6}, pp_launches
+                           "segment_sum": 6, "recompute_forward": 6,
+                           "recompute_backward": 6}, pp_launches
     assert np.isfinite(pp_losses).all() and pp_losses[2] < pp_losses[0], pp_losses
     fixed = sharding.make_sharded_train_step(mesh2, screen, zero, resolution=128,
                                              learning_rate=0.0, patch_axis="patches")
@@ -980,7 +1005,8 @@ def _drivers_phase(dev, card, kernels, scene):
     fr_peak = torch.cuda.max_memory_allocated(dev) - base
     assert fr_launches == {"sweep_select": 0, "winner": 0, "sweep_codes": 1,
                            "fma_chains": 0, "tables": 1, "pack_rays": 1,
-                           "segment_sum": 0}, fr_launches
+                           "segment_sum": 0, "recompute_forward": 0,
+                           "recompute_backward": 0}, fr_launches
     triples = report["triples"]
     assert len(report["followers"]) == R and report["total_follow_candidates"] == len(triples)
     assert len(triples) > 0 and (np.diff(triples[:, 0]) >= 0).all()
@@ -1167,14 +1193,17 @@ def _scale_phase(dev, card, kernels):
           f"{em['device_path']['launches_per_render']}, a step "
           f"{em['train_step']['launches_per_step']}, in the script "
           f"{path_launches['emitter4k']}", flush=True)
-    # one K1 launch and one table launch a chunk, for each of the two
-    # refractions; one segment sum a render (the scatter splat) and, in a
-    # step, one more for each chunk's recompute backward
+    # one K1 launch, one ray pack and one recompute forward a chunk, for
+    # each of the two refractions, on tables built once; one segment sum a
+    # render (the scatter splat) and, in a step, each chunk's recompute again
+    # (its checkpoint), its backward and the segment sum of its row gradients
     def one_pass(rays, chunk, step=False):
         chunks = -(-rays // chunk)
         return {"sweep_select": 2 * chunks, "winner": 0, "sweep_codes": 0, "fma_chains": 0,
                 "tables": 1, "pack_rays": 2 * chunks,
-                "segment_sum": 1 + (2 * chunks if step else 0)}
+                "segment_sum": 1 + (2 * chunks if step else 0),
+                "recompute_forward": 2 * chunks * (2 if step else 1),
+                "recompute_backward": 2 * chunks if step else 0}
 
     chunk = render["chunk"]
     per_4k, per_4k_step = one_pass(n, chunk), one_pass(n, chunk, step=True)
@@ -1408,6 +1437,256 @@ def _segment_phase(dev, card, scene, win):
     return rows
 
 
+# the shape of the main path's recompute (the headline step's), whose
+# numbers go into the kernels line
+_REC_MAIN = "headline 262,144 x 450 (K1's winners)"
+_REC_FIELDS = ("what", "distance", "point", "normal", "bary", "cos_incidence", "patch",
+               "what_w")
+# what the recompute's arithmetic counts as f32 operations (aten names)
+_F32_OPS = {"add", "sub", "mul", "div", "neg", "abs", "sqrt", "reciprocal", "maximum",
+            "minimum", "clamp", "clamp_min", "clamp_max", "rsub"}
+
+
+def _ops_per_ray():
+    """(forward, backward) f32 operations a ray of the recompute kernels: the
+    elementwise f32 arithmetic of their plain versions, which evaluate the
+    kernels' expressions one for one (every lane runs every one), counted
+    under a dispatch mode on the CPU at 16^2 rays."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from cbtr_tpu_torch.models import robot_lens_scene
+    from cbtr_tpu_torch.ops import cuda_recompute as cr
+    from cbtr_tpu_torch.ops import cuda_sweep as cs
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if (func.__name__.split(".")[0].rstrip("_") in _F32_OPS
+                    and isinstance(out, torch.Tensor) and out.dtype == torch.float32):
+                self.n += out.numel()
+            return out
+
+    sc = robot_lens_scene(res=16, device="cpu")
+    any_hit, win, _ = cs.sweep_select(sc.patches, sc.start, sc.direction)
+    R = sc.start.shape[0]
+    args = (sc.patches.packed_f32().detach(), win.clamp_min(0).to(torch.int64), sc.start,
+            sc.direction, any_hit)
+    with Count() as fwd:
+        cr.recompute_forward_reference(*args, win)
+    cot = [torch.zeros(shape) for shape in ((R,), (R, 3), (R, 3), (R, 3), (R,))]
+    with Count() as bwd:
+        cr.recompute_adjoint_reference(*args, *cot)
+    return fwd.n / R, bwd.n / R
+
+
+def _kernel_only_ms(fn, name, calls=20, tries=3):
+    """(device ms a call of kernel `name`, profiler sessions) over one
+    session of `calls` calls of fn (`kernel_ab.device_kernels`), taken only
+    when the session saw every call's launch: a short call's records can
+    go missing (PERF.md §7)."""
+    from cbtr_tpu_torch.harness import kernel_ab
+
+    seen = []
+    for _ in range(tries):
+        ops, _, per, sessions = kernel_ab.device_kernels(lambda: [fn() for _ in range(calls)],
+                                                         (name,))
+        if ops == calls:
+            return per[name] / calls, sessions
+        seen.append(ops)
+    raise RuntimeError(f"torch.profiler saw {seen} device ops for {calls} launches of {name}")
+
+
+def _recompute_phase(dev, card, scene):
+    """Phase r: the recompute kernels against their plain versions on the
+    card at the main path's shapes (the headline on K1's winners, the
+    refined robot on K2's, one 4K chunk on K1's): every forward field
+    `torch.equal` to the twin's; the backward's row, start and direction
+    gradients `torch.equal` to `recompute_adjoint_reference` (cotangents
+    random on the hits and 0 on the misses, as the path gives them, and
+    random on every ray), two runs bit-equal, and the gradients (the rows
+    added by the segment-sum kernel, as `_Recompute` adds them) within
+    tests/test_torch_recompute.py (a)'s bar of autograd through the twin;
+    each kernel's time (CUDA events), its own device time (profiler kernel
+    events), its plain version's, autograd's through the twin, the device
+    ops of the recompute forward and of its forward and backward on the
+    kernels, the peak memory above the inputs and the bound.  Returns
+    {shape: row}."""
+    import torch
+
+    from cbtr_tpu_torch.harness import kernel_ab
+    from cbtr_tpu_torch.models import scene_ortho_grid
+    from cbtr_tpu_torch.ops import cuda_recompute as cr
+    from cbtr_tpu_torch.ops import cuda_segment as sg
+    from cbtr_tpu_torch.ops import cuda_sweep as cs
+    from cbtr_tpu_torch.ops import cuda_winner as cw
+    from cbtr_tpu_torch.ops import intersect as ix
+
+    from cbtr_tpu_torch.models import robot_lens_scene
+
+    fwd_ops, bwd_ops = _ops_per_ray()
+    print(f"[r] f32 operations a ray (the plain versions' arithmetic, counted on the CPU): "
+          f"forward {fwd_ops:.0f}, backward {bwd_ops:.0f}", flush=True)
+    # the order in which the card's autograd sums a broadcast operand's three
+    # terms (the backward kernel's rsum3, cuda_recompute._REDUCTION["cuda"])
+    gen = torch.Generator(device=dev).manual_seed(12)
+    x = torch.randn((1 << 20, 3), generator=gen, device=dev) * torch.exp(
+        3 * torch.randn((1 << 20, 3), generator=gen, device=dev))
+    y = torch.randn(1 << 20, generator=gen, device=dev).requires_grad_(True)
+    g = torch.randn((1 << 20, 3), generator=gen, device=dev)
+    (y[:, None] * x).backward(g)
+    p0, p1, p2 = (g * x).unbind(1)
+    orders = {"(a + b) + c": p0 + p1 + p2, "(a + c) + b": p0 + p2 + p1, "a + (b + c)": p0 + (p1 + p2)}
+    differ = {k: int((v != y.grad).sum()) for k, v in orders.items()}
+    print(f"[r] the card's autograd sums a [R, 3] product into [R, 1]: rows of 1,048,576 that "
+          f"differ from each order {differ}", flush=True)
+    assert differ["(a + c) + b"] == 0 and cr._REDUCTION["cuda"] == "ac_b", differ
+    del x, y, g, p0, p1, p2, orders
+    refined = robot_lens_scene(res=512, refine=True, device=dev)
+    s4, d4 = scene_ortho_grid(4096).rays_at(torch.arange(1 << 20, device=dev))
+    shapes = {
+        _REC_MAIN: (scene.patches, scene.start, scene.direction, cs.sweep_select),
+        "refined 262,144 x 1800 (K2's winners)": (refined.patches, refined.start,
+                                                  refined.direction, cw.sweep_winner),
+        "4K chunk 1,048,576 x 450 (K1's winners)": (scene.patches, s4, d4, cs.sweep_select),
+    }
+
+    def peak_above(fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        fn()
+        torch.cuda.synchronize()
+        return (torch.cuda.max_memory_allocated() - before) / 2**30
+
+    def wall_ms(fn):
+        fn()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) * 1e3
+
+    rows = {}
+    for name, (patches, s, d, search) in shapes.items():
+        s, d = s.contiguous(), d.contiguous()
+        with torch.no_grad():
+            any_hit, win, _ = search(patches, s, d)
+        table = patches.packed_f32().detach().contiguous()
+        idx = win.clamp_min(0).to(torch.int64)
+        args = (table, idx, s, d, any_hit, win)
+        R, P = s.shape[0], table.shape[0]
+        got = cr.launch_forward(*args)
+        want = cr.recompute_forward_reference(*args)
+        torch.cuda.synchronize()
+        differ = {f: int((g != w).sum()) for f, g, w in zip(_REC_FIELDS, got, want)}
+        assert all(torch.equal(g, w) for g, w in zip(got, want)), (name, differ)
+        gen = torch.Generator(device=dev).manual_seed(13)
+        every = [torch.randn(shape, generator=gen, device=dev)
+                 for shape in ((R,), (R, 3), (R, 3), (R, 3), (R,))]
+        hits = [torch.where(any_hit if c.dim() == 1 else any_hit[:, None], c, 0.0)
+                for c in every]
+        for label, cot in (("hits", hits), ("every ray", every)):
+            first = cr.launch_backward(*args[:5], *cot)
+            second = cr.launch_backward(*args[:5], *cot)
+            plain = cr.recompute_adjoint_reference(*args[:5], *cot)
+            torch.cuda.synchronize()
+            assert all(torch.isfinite(g).all() for g in first), (name, label)
+            assert all(torch.equal(a, b) for a, b in zip(first, second)), (name, label)
+            assert all(torch.equal(a, b) for a, b in zip(first, plain)), (
+                name, label, [int((a != b).sum()) for a, b in zip(first, plain)])
+        # against autograd through the twin: the rows added by the segment-sum
+        # kernel, as the Function adds them
+        rows_g, g_s, g_d = cr.launch_backward(*args[:5], *hits)
+        kernel_grads = (sg.launch(idx, rows_g, P), g_s, g_d)
+        leaf_t = table.clone().requires_grad_(True)
+        leaf_s, leaf_d = s.clone().requires_grad_(True), d.clone().requires_grad_(True)
+
+        def twin_backward():
+            hit, _ = cr.recompute_reference(leaf_t, idx, leaf_s, leaf_d, any_hit, win)
+            sum(((torch.where(any_hit, hit.distance, 0.0) if f == "distance"
+                  else getattr(hit, f)) * c).sum() for f, c in zip(_REC_FIELDS[1:6], hits)
+                ).backward()
+
+        twin_backward()
+        bar = {}
+        for label, a, b in zip(("table", "start", "direction"), kernel_grads,
+                               (leaf_t.grad, leaf_s.grad, leaf_d.grad)):
+            atol = 1e-5 * float(b.abs().max())
+            outside = ~torch.isclose(a, b, rtol=1e-4, atol=atol)
+            beyond = ~torch.isclose(a, b, rtol=1e-3, atol=atol)
+            bar[label] = (int(outside.sum()), a.numel(), int(beyond.sum()),
+                          int((a != b).sum()))
+            assert float(outside.float().mean()) <= 5e-4 and not beyond.any(), (
+                name, label, bar[label])
+
+        ms_f = _time_ms(lambda: cr.launch_forward(*args))
+        ms_b = _time_ms(lambda: cr.launch_backward(*args[:5], *hits))
+        dev_f = _kernel_only_ms(lambda: cr.launch_forward(*args), "recompute_forward_kernel")
+        dev_b = _kernel_only_ms(lambda: cr.launch_backward(*args[:5], *hits),
+                                "recompute_backward_kernel")
+        plain_f = wall_ms(lambda: cr.recompute_forward_reference(*args))
+        plain_b = wall_ms(lambda: cr.recompute_adjoint_reference(*args[:5], *hits))
+
+        def twin_step():
+            for leaf in (leaf_t, leaf_s, leaf_d):
+                leaf.grad = None
+            twin_backward()
+
+        twin_ms = wall_ms(twin_step)
+        peak_f = peak_above(lambda: cr.launch_forward(*args))
+        peak_b = peak_above(lambda: cr.launch_backward(*args[:5], *hits))
+
+        # the main path's recompute on the kernels, forward alone and forward
+        # with its backward (the twin's, about 1,100 and 3,900, are counted by
+        # `kernel_ab --recompute-only` in a process of its own: a long
+        # profiler session here would cost later short ones their records)
+        def path(grad):
+            if not grad:
+                with torch.no_grad():
+                    return ix.recompute_winner(patches, s, d, any_hit, win)
+            p = patches.map(lambda t: t.detach().requires_grad_(t.is_floating_point()))
+            hit = ix.recompute_winner(p, s, d, any_hit, win)
+            (hit.point * hits[1]).sum().backward()
+
+        ops = {label: kernel_ab.device_kernels(lambda g=g: path(g))[0]
+               for label, g in (("forward", False), ("forward and backward", True))}
+        nbytes_f = R * (8 + 1 + 4 + 24 + 56) + P * 240
+        nbytes_b = R * (8 + 1 + 24 + 44 + 264) + P * 240
+        rows[name] = dict(
+            rays=R, patches=P, hits=int(any_hit.sum()), max_err=0.0, bar=bar,
+            forward=dict(ms=ms_f, kernel_ms=dev_f[0], profiler_sessions=dev_f[1],
+                         plain_ms=plain_f, peak_gib=peak_f,
+                         bound=_bound_ms(fwd_ops * R, nbytes_f)),
+            backward=dict(ms=ms_b, kernel_ms=dev_b[0], profiler_sessions=dev_b[1],
+                          plain_ms=plain_b, autograd_ms=twin_ms, peak_gib=peak_b,
+                          bound=_bound_ms(bwd_ops * R, nbytes_b)),
+            path_device_ops=ops)
+        for kind in ("forward", "backward"):
+            r = rows[name][kind]
+            extra = (f", autograd through the twin (forward and backward) {r['autograd_ms']:.3f} "
+                     f"ms" if kind == "backward" else "")
+            print(f"[r] {card} | recompute {kind} {name}: {r['ms']:.4f} ms (CUDA events), "
+                  f"kernel alone {r['kernel_ms']:.4f} ms (profiler kernel events, "
+                  f"{r['profiler_sessions']} sessions), peak {r['peak_gib']:.4f} GiB above its "
+                  f"inputs; plain version "
+                  f"{r['plain_ms']:.3f} ms{extra}; bound {r['bound'][0]:.4f} ms "
+                  f"({r['bound'][1]}), kernel / bound {r['kernel_ms'] / r['bound'][0]:.2f}",
+                  flush=True)
+        print(f"[r] recompute {name}: {int(any_hit.sum())} hits of {R}; every forward field "
+              f"torch.equal to the twin's; the backward torch.equal to the adjoint (hits' "
+              f"and every ray's cotangents) and to a second run; against autograd through "
+              f"the twin (outside rtol 1e-4, entries, beyond rtol 1e-3, not bit-equal): "
+              f"{bar}; device ops of recompute_winner {ops}", flush=True)
+        del got, want, every, hits, plain, first, second, kernel_grads, leaf_t
+        torch.cuda.empty_cache()
+    del s4, d4, refined
+    torch.cuda.empty_cache()
+    return rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--against", default="", help="root of another checkout to "
@@ -1454,8 +1733,8 @@ def main(argv=None) -> int:
     build_log = cs.build_library()
     build_s = time.perf_counter() - t
     print(f"[0] card: {card} | torch {torch.__version__} cuda {torch.version.cuda} "
-          f"| python {sys.version.split()[0]} | K1 + K2 + K3 + K4 + tables + segment_sum build (one nvcc "
-          f"per source, in parallel) {build_s:.3f} s",
+          f"| python {sys.version.split()[0]} | K1 + K2 + K3 + K4 + tables + segment_sum + "
+          f"recompute build (one nvcc per source, in parallel) {build_s:.3f} s",
           flush=True)
     for line in build_log.splitlines():
         if line.startswith("==") or "registers" in line or "spill" in line:
@@ -1542,6 +1821,7 @@ def main(argv=None) -> int:
     # the tables once a step (both refractions share them), one ray pack a pass
     assert main_launches == {"sweep_select": 6, "winner": 0, "sweep_codes": 0,
                              "fma_chains": 0, "tables": 3, "pack_rays": 6, "segment_sum": 6,
+                             "recompute_forward": 6, "recompute_backward": 6,
                              "tile_block_lists": 0}, main_launches
     print(f"[4] train: 3 SGD steps, loss {losses}, |grad cp| max {g_max:.4e}, "
           f"grad n {g_n:.4e}, launches {main_launches}", flush=True)
@@ -1620,7 +1900,8 @@ def main(argv=None) -> int:
     ix.intersect_rays(rp, rs[:4096], rd[:4096])
     routed = {k: v.launches for k, v in kernels.items()}
     assert routed == {"sweep_select": 0, "winner": 1, "sweep_codes": 0,
-                      "fma_chains": 0, "tables": 1, "pack_rays": 1, "segment_sum": 0}, routed
+                      "fma_chains": 0, "tables": 1, "pack_rays": 1, "segment_sum": 0,
+                      "recompute_forward": 1, "recompute_backward": 0}, routed
     got = cw.sweep_winner(rp, rs, rd)
     ref = cw.sweep_winner_reference(rp, rs, rd)
     k2_cmp = _compare(got, ref)
@@ -1642,6 +1923,7 @@ def main(argv=None) -> int:
     losses, g_max, g_n, large_launches = _train(lens_model, refined, kernels, 2.5e-7)
     assert large_launches == {"sweep_select": 0, "winner": 6, "sweep_codes": 0,
                               "fma_chains": 0, "tables": 3, "pack_rays": 6, "segment_sum": 6,
+                              "recompute_forward": 6, "recompute_backward": 6,
                               "tile_block_lists": 0}, large_launches
     r_dcp, r_dn, r_gmax = _gradient_twice(lens_model.params_from_scene(refined), refined,
                                           target)
@@ -1857,6 +2139,13 @@ def main(argv=None) -> int:
     table_lenses_p = {n: lens.num_patches for n, lens in table_lenses.items()}
     del tables_out, table_lenses, k1_tables, k2_tables, grid4k
 
+    # ---- r: the recompute kernels against their plain versions -------------------
+    # before any long profiler session: a short call's records can go missing
+    # after one (PERF.md §7)
+    t = time.perf_counter()
+    rec_rows = _recompute_phase(dev, card, scene)
+    print(f"[r] took {time.perf_counter() - t:.1f} s", flush=True)
+
     # ---- f: K3 against its twin; the staged winners ----------------------------
     k3_rows = {}
     for name, sc in (("robot", scene), ("refined", refined)):
@@ -1986,7 +2275,8 @@ def main(argv=None) -> int:
             learning_rate=sgd_lr))
         assert fit_launches == {"sweep_select": 12, "winner": 0, "sweep_codes": 0,
                                 "fma_chains": 0, "tables": 6, "pack_rays": 12,
-                                "segment_sum": 12}, fit_launches
+                                "segment_sum": 12, "recompute_forward": 12,
+                                "recompute_backward": 12}, fit_launches
         assert l_full[-1] < l_full[0], l_full
         ckpts = sorted(os.listdir(full))
         assert ckpts == ["ckpt_2.npz", "ckpt_4.npz", "ckpt_6.npz"], ckpts
@@ -2051,7 +2341,8 @@ def main(argv=None) -> int:
         refined, target, 3, learning_rate=sgd_lr))
     assert big_launches == {"sweep_select": 0, "winner": 6, "sweep_codes": 0,
                             "fma_chains": 0, "tables": 3, "pack_rays": 6,
-                            "segment_sum": 6}, big_launches
+                            "segment_sum": 6, "recompute_forward": 6,
+                            "recompute_backward": 6}, big_launches
     assert l_big[-1] < l_big[0], l_big
     big_ms = {"sgd": _fit_step_ms(fit_lens, refined, target, None, sgd_lr),
               "adam": _fit_step_ms(fit_lens, refined, target, "adam", adam_lr)}
@@ -2142,6 +2433,8 @@ def main(argv=None) -> int:
     assert all(np.isfinite(l_emit)) and l_emit[-1] < l_emit[0], l_emit
     assert emit_launches["sweep_select"] == 6 and emit_launches["segment_sum"] == 6, \
         emit_launches
+    assert emit_launches["recompute_forward"] == 6 and \
+        emit_launches["recompute_backward"] == 6, emit_launches
     assert repeats == {emit_lr: l_emit, 1e-4: l_over[1e-4]}, (repeats, l_emit, l_over)
     print(f"[l] fit_emitter_lens on the robot, {n_em} emitter rays, 3 SGD steps at "
           f"{emit_lr} from a perturbed start: loss {l_emit}, launches {emit_launches}; "
@@ -2236,6 +2529,25 @@ def main(argv=None) -> int:
     seg_rows = _segment_phase(dev, card, scene, k1_win)
     print(f"[s] took {time.perf_counter() - t:.1f} s", flush=True)
     del k1_win
+
+    # ---- r (the summary; the phase ran after phase t) --------------------------------
+    # each path's recompute launches (counts set to 0 just before each path):
+    # a forward and a backward a refraction a step, a forward a chunk a
+    # refraction a render, and in a step each chunk's again (its checkpoint)
+    rec_launches = {
+        "train step": (main_launches, 3), "fit step": (fit_launches, 6),
+        "refined step": (large_launches, 3),
+        "design step": (design_out["launches"], design_out["steps"]),
+        "4K render": (scale_out["render"]["launches_per_render"], 1),
+        "4K step": (scale_out["train"]["launches_per_step"], 1),
+        "emitter render": (scale_out["emitter"]["device_path"]["launches_per_render"], 1)}
+    rec_launches = {k: (v["recompute_forward"] / n, v["recompute_backward"] / n)
+                    for k, (v, n) in rec_launches.items()}
+    print(f"[r] {card} | recompute kernel launches by path (forward, backward): "
+          f"{rec_launches}", flush=True)
+    assert rec_launches == {"train step": (2, 2), "fit step": (2, 2), "refined step": (2, 2),
+                            "design step": (2, 2), "4K render": (32, 0), "4K step": (64, 32),
+                            "emitter render": (32, 0)}, rec_launches
 
     # ---- i: another checkout against this one ------------------------------------
     if args.against:
@@ -2432,6 +2744,32 @@ def main(argv=None) -> int:
                                                  "longest", "passes", "levels", "peak_gib")}
                        | {"bound_ms": r["bound"][0]} for name, r in seg_rows.items()},
         },
+        *({
+            "name": f"recompute_{kind}",
+            "route": "cuda",
+            "source": "cbtr_tpu_torch/csrc/recompute.cu",
+            "replaces": "cbtr_tpu/ops/intersect.py:314 (XLA fusion, no Pallas kernel)",
+            "launches": main_launches[f"recompute_{kind}"],
+            "launches_per_step": main_launches[f"recompute_{kind}"] / 3,
+            "launches_per_fit_step": fit_launches[f"recompute_{kind}"] / 6,
+            "launches_per_4k_render":
+                scale_out["render"]["launches_per_render"][f"recompute_{kind}"],
+            "launches_per_4k_step": scale_out["train"]["launches_per_step"][f"recompute_{kind}"],
+            "launches_per_design_step":
+                design_out["launches"][f"recompute_{kind}"] / design_out["steps"],
+            "launches_by_path": {k: v[0 if kind == "forward" else 1]
+                                 for k, v in rec_launches.items()},
+            "max_abs_err": max(r["max_err"] for r in rec_rows.values()),
+            "ms": rec_rows[_REC_MAIN][kind]["ms"],
+            "plain_ms": rec_rows[_REC_MAIN][kind]["plain_ms"],
+            "bound_ms": rec_rows[_REC_MAIN][kind]["bound"][0],
+            "bound_by": rec_rows[_REC_MAIN][kind]["bound"][1],
+            "library_ms": None,
+            "kernel_only_ms": rec_rows[_REC_MAIN][kind]["kernel_ms"],
+            "shapes": {name: {k: r[kind][k] for k in ("ms", "kernel_ms", "plain_ms", "peak_gib")}
+                       | {"bound_ms": r[kind]["bound"][0], "path_device_ops": r["path_device_ops"]}
+                       for name, r in rec_rows.items()},
+        } for kind in ("forward", "backward")),
         {
             "name": "fma_chains",
             "route": "cuda",

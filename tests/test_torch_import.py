@@ -17,6 +17,7 @@ import cbtr_tpu_torch.ops.cuda_winner as cw
 import cbtr_tpu_torch.ops.cuda_codes as cc
 import cbtr_tpu_torch.ops.cuda_tables as ct
 import cbtr_tpu_torch.ops.cuda_segment as sg
+import cbtr_tpu_torch.ops.cuda_recompute as cr
 import cbtr_tpu_torch.harness.determinism
 import cbtr_tpu_torch.benchmarks.fma_peak as fp
 import cbtr_tpu_torch.bench
@@ -83,6 +84,7 @@ assert cs.sweep_select.launches == 0 and cw.sweep_winner.launches == 0
 assert cc.sweep_codes_cuda.launches == 0 and fp.fma_chains.launches == 0
 assert ct.build_tables.launches == 0 and sg.segment_sum.launches == 0
 assert ct.pack_rays.launches == 0
+assert all(f.launches == 0 for f in cr.COUNTED.values())
 assert not dist.is_initialized()  # importing the parallel layer starts no group
 assert nat._lib is None and nat.build_error() is None   # no g++ run, nothing loaded
 if os.path.exists("/proc/self/maps"):

@@ -22,10 +22,12 @@ def test_profile_step_sees_every_stage_on_cpu():
     # two refractions, each one winner search and one recompute, on one
     # table build (its plain version on the CPU); CPU tensors run the
     # kernel's plain twin, so the ray pack and K1's launch are not reached;
-    # the splat is the matrix product at this size: no segment sum
+    # the splat is the matrix product at this size: no segment sum; the
+    # recompute runs its plain version on CPU tensors, not its kernels
     assert calls == {"trace_through_lens": 1, "recompute_winner": 2,
                      "winner_search": 2, "tables": 1, "k1_rays": 0, "k1_launch": 0,
-                     "screen_hits": 1, "splat_bilinear": 1, "segment_sum": 0}
+                     "screen_hits": 1, "splat_bilinear": 1, "segment_sum": 0,
+                     "recompute_forward": 0, "recompute_backward": 0}
     assert all(s["device_ms"] is None for s in result["stages_forward"].values())
     assert result["step_peak_gib"] is None
     assert result["forward_profile"]["busy_share"] is None
