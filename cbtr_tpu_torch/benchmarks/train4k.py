@@ -6,8 +6,9 @@ Counterpart of benchmarks/train4k.py (the training half of BASELINE config
 
 * --gpu: one step of `parallel.multihost.make_multihost_train_step_ortho` on
   a group of one, rays made on the device, `intersect_rays` in chunks of
-  --chunk (each chunk's recompute checkpointed: its residuals are rebuilt
-  in the backward), a 128^2 zero target at lr 1e-4.  The step runs twice
+  --chunk (each chunk's recompute on the kernel pair, which keeps no
+  residuals: no chunk is checkpointed, its backward re-runs the forward in
+  registers), a 128^2 zero target at lr 1e-4.  The step runs twice
   from the same parameters (the first builds and warms); the record gives
   the second's wall time and rays/s, the loss, the control-point gradient's
   norm and the index's gradient, a checksum of the loss and gradients of

@@ -41,9 +41,36 @@
 // table; it writes 56 bytes forward (the fields) or 264 backward (the row
 // gradient and the ray's); the forward does 1,564 f32 operations, the
 // backward 6,920 (the plain versions' arithmetic, counted by chip_smoke
-// phase r).  The design is the simple one: a thread a ray, the row read
-// through the read-only cache, the backward's gradient accumulators in
-// registers (48 of them), each iteration's inputs in a local array.
+// phase r).  Built without contraction, an add and a multiply are two
+// instructions where an FMA would be one, and each IEEE division and square
+// root a sequence, so the operations bound is out of reach by about 2x.
+//
+// The design.  A thread a ray, the row read through the read-only cache,
+// one build of each kernel for every Newton count (Params::iters, 1 to
+// MAX_ITERS).  The loops over iterations stay loops: unrolled, the code and
+// its registers grew (the backward 217-226 registers, 2 blocks an SM) and
+// ran up to 2x slower; a build for each count (a template on the count)
+// measured under 1 % faster than the loops bounded at run time, too little
+// for eight builds of each kernel.  So each
+// iteration's inputs (middle and projection direction) go to the thread's
+// column of a shared array sized for MAX_ITERS (SharedInputs), not to a
+// stack, and the fields' cotangents enter the last iteration by a uniform
+// branch.  The backward keeps its 48 row-gradient accumulators in shared
+// memory too, a column a thread (SharedAcc), not in registers; that and
+// __launch_bounds__ hold it to 128 registers, BWD_BLOCKS = 4 blocks (16
+// warps) an SM where 168 registers allowed 3, for the warps that hide its
+// long chains of dependent divisions and square roots.  ptxas spills a few
+// words there; the spill-free build at 3 blocks measured slower.  After a
+// __syncthreads() the block writes its rows from the shared array as one
+// contiguous span of 16-byte quads, neighbouring threads on neighbouring
+// quads (store_rows), where each thread stored its own 240-byte row.  The
+// forward is held to 64 registers, 8 blocks an SM, and stores its fields
+// itself; staging them through shared memory measured slower.  Every
+// thread of a block computes, a spare one on the last ray, and branches
+// only at its stores (forward_ray).  The backward's two phases share
+// nothing but shared memory and the kernel's view of its parameters
+// (tests/test_torch_recompute.py runs each phase as a loop over a block's
+// threads on the host).  PERF.md §6 has the times of what lost.
 
 #include "candidate.cuh"
 
@@ -58,9 +85,16 @@ constexpr int COL_H_IN = ROW_H;
 constexpr int COL_H_OUT = ROW_H + 1;
 constexpr int COL_DB = ROW_DB;
 constexpr int MAX_ITERS = 8;  // cuda_recompute._MAX_ITERS
-constexpr int THREADS = 128;
 constexpr float BARY_CLAMP = 16.0f;
 constexpr float MIDDLE_CLAMP = 1e7f;
+
+constexpr int FWD_THREADS = 128;
+constexpr int FWD_BLOCKS = 8;  // blocks an SM the forward's launch bounds ask for
+constexpr int BWD_THREADS = 128;
+constexpr int BWD_BLOCKS = 4;  // and the backward's
+// the shared arrays' column stride: one word of padding, so that the block
+// store's reads (a warp across a few rows' columns) fall on distinct banks
+constexpr int ACC_STRIDE = BWD_THREADS + 1;
 
 struct Ray3 {
   float s[3], d[3];
@@ -308,6 +342,10 @@ __device__ __forceinline__ void newton(const Row& row, const Ray3& r, float m,
 // ---------------------------------------------------------------------------
 // the reverse sweep (cuda_recompute.recompute_adjoint_reference)
 // ---------------------------------------------------------------------------
+//
+// Each function adds into `acc`, the 48 row-gradient accumulators: a type
+// indexed like an array of floats (SharedAcc's slots in shared memory), as
+// the row is read through an accessor.
 
 // the gradient autograd sums for the [R, 1] operand of a broadcast product
 // with [R, 3]: its reduction over the three axes on the card adds the first
@@ -349,9 +387,9 @@ __device__ __forceinline__ float split_grad(float g, bool lost, bool tie) {
 
 // reverse of f = interp(row, b): adds into the control-net columns of acc
 // and into g_b, the weights' products taken back the last one first
-template <class Row>
+template <class Row, class Acc>
 __device__ __forceinline__ void interp_bwd(const Row& row, const float (&b)[3],
-                                           const float (&g_f)[3], float (&acc)[N_GRAD],
+                                           const float (&g_f)[3], Acc& acc,
                                            float (&g_b)[3]) {
   float w[10];
   weights(b, w);
@@ -381,9 +419,9 @@ __device__ __forceinline__ void interp_bwd(const Row& row, const float (&b)[3],
 
 // reverse of the unit normal at bary b: adds into the control-net and
 // deriv_b columns of acc and into g_b
-template <class Row>
+template <class Row, class Acc>
 __device__ __forceinline__ void normal_bwd(const Row& row, const float (&b)[3],
-                                           const float (&g_nm)[3], float (&acc)[N_GRAD],
+                                           const float (&g_nm)[3], Acc& acc,
                                            float (&g_b)[3]) {
   NormalParts o;
   normal_parts(row, b, o);
@@ -446,9 +484,9 @@ __device__ __forceinline__ void normal_bwd(const Row& row, const float (&b)[3],
 // reverse of braw = M @ v: adds g_braw_i * v_j into M's columns of acc and
 // M^T g_braw into g_v (from its first term when `fresh`), the last row of M
 // first
-template <class Row>
+template <class Row, class Acc>
 __device__ __forceinline__ void add_bary_mat_grad(const Row& row, const float (&g_braw)[3],
-                                                  const float (&v)[3], float (&acc)[N_GRAD],
+                                                  const float (&v)[3], Acc& acc,
                                                   float (&g_v)[3], bool fresh) {
 #pragma unroll
   for (int i = 0; i < 3; ++i)
@@ -466,9 +504,9 @@ __device__ __forceinline__ void add_bary_mat_grad(const Row& row, const float (&
 
 // reverse of diff = surface_diff(row, r, t) with cotangent g: adds into acc,
 // gs and gd; returns the gradient of t
-template <class Row>
+template <class Row, class Acc>
 __device__ __forceinline__ float surface_diff_bwd(const Row& row, const Ray3& r, float t,
-                                                  float g, float (&acc)[N_GRAD],
+                                                  float g, Acc& acc,
                                                   float (&gs)[3], float (&gd)[3]) {
   float n[3];
   plane_normal(row, n);
@@ -511,12 +549,12 @@ __device__ __forceinline__ float surface_diff_bwd(const Row& row, const Ray3& r,
 // next middle g_mn, next direction g_pdn and of its surface point g_f,
 // normal g_nm and bary g_b (updated in place): adds into acc, gs and gd;
 // writes the gradients of m and pd
-template <class Row>
+template <class Row, class Acc>
 __device__ __forceinline__ void newton_bwd(const Row& row, const Ray3& r, float m,
                                            const float (&pd)[3], float g_mn,
                                            const float (&g_pdn)[3], float (&g_f)[3],
                                            float (&g_nm)[3], float (&g_b)[3],
-                                           float (&acc)[N_GRAD], float (&gs)[3],
+                                           Acc& acc, float (&gs)[3],
                                            float (&gd)[3], float& g_m, float (&g_pd)[3]) {
   float n[3];
   plane_normal(row, n);
@@ -589,10 +627,10 @@ __device__ __forceinline__ void newton_bwd(const Row& row, const Ray3& r, float 
 
 // reverse of bracket() and of the projection direction's start at the plane
 // normal, with the cotangents of the first middle g_m0 and direction g_pd0
-template <class Row>
+template <class Row, class Acc>
 __device__ __forceinline__ void bracket_bwd(const Row& row, const Ray3& r, const Params& prm,
                                             const Bracket& br, float g_m0,
-                                            const float (&g_pd0)[3], float (&acc)[N_GRAD],
+                                            const float (&g_pd0)[3], Acc& acc,
                                             float (&gs)[3], float (&gd)[3]) {
   float n[3];
   plane_normal(row, n);
@@ -670,37 +708,71 @@ __device__ __forceinline__ Ray3 load_ray(const float* start, const float* direct
 // the kernels
 // ---------------------------------------------------------------------------
 
-__global__ void __launch_bounds__(THREADS)
-recompute_forward_kernel(const float* __restrict__ table, const long long* __restrict__ idx,
-                         const float* __restrict__ start, const float* __restrict__ direction,
-                         const unsigned char* __restrict__ any_hit,
-                         const int* __restrict__ win, int P, int R, Params prm,
-                         int* __restrict__ what, float* __restrict__ distance,
-                         float* __restrict__ point, float* __restrict__ normal,
-                         float* __restrict__ bary, float* __restrict__ cos_out,
-                         int* __restrict__ patch, int* __restrict__ what_w) {
-  const int ray = blockIdx.x * THREADS + threadIdx.x;
-  if (ray >= R) return;
-  const long long id = idx[ray];
-  if (id < 0 || id >= P) {
-    // an id outside the table reads nothing: every field is NaN or none
-    what[ray] = what_w[ray] = WHAT_NONE;
-    patch[ray] = -1;
-    distance[ray] = cos_out[ray] = NAN;
-#pragma unroll
-    for (int x = 0; x < 3; ++x) point[3 * ray + x] = normal[3 * ray + x] = bary[3 * ray + x] = NAN;
-    return;
-  }
-  const Ray3 r = load_ray(start, direction, ray);
-  const GlobalRow row{table + id * N_COLS};
+struct ForwardArgs {
+  const float* table;
+  const long long* idx;
+  const float* start;
+  const float* direction;
+  const unsigned char* any_hit;
+  const int* win;
+  int P, R;
+  Params prm;
+  int* what;
+  float* distance;
+  float* point;
+  float* normal;
+  float* bary;
+  float* cos_out;
+  int* patch;
+  int* what_w;
+};
 
-  Bracket br;
-  bracket(row, r, prm, br);
+struct BackwardArgs {
+  const float* table;
+  const long long* idx;
+  const float* start;
+  const float* direction;
+  const unsigned char* any_hit;
+  const float* g_distance;
+  const float* g_point;
+  const float* g_normal;
+  const float* g_bary;
+  const float* g_cos;
+  int P, R;
+  Params prm;
+  float* rows;
+  float* g_start;
+  float* g_direction;
+};
+
+// a thread's 48 row-gradient accumulators in the block's shared array,
+// column-major: column j of thread t at j * ACC_STRIDE + t, so a warp's
+// update of one column touches 32 consecutive words, one to a bank
+struct SharedAcc {
+  float* p;  // the array + threadIdx.x
+  __device__ __forceinline__ float& operator[](int j) const { return p[j * ACC_STRIDE]; }
+};
+
+// each Newton iteration's inputs, (k, 0) the middle and (k, 1 + x) the
+// projection direction, in the thread's column-major slot of the block's
+// shared array, as SharedAcc
+struct SharedInputs {
+  float* p;  // the array + threadIdx.x
+  __device__ __forceinline__ float& operator()(int k, int c) const {
+    return p[(4 * k + c) * ACC_STRIDE];
+  }
+};
+
+// the forward's Newton iterations from the bracket's middle: it holds the
+// last one's intermediates, dist the middle it started from
+__device__ __forceinline__ void forward_iterations(const GlobalRow& row, const Ray3& r,
+                                                   const Params& prm, const Bracket& br,
+                                                   Newton& it, float& dist) {
   float m = br.middle;
   float pd[3];
   plane_normal(row, pd);
-  float dist = m;
-  Newton it;
+  dist = m;
+#pragma unroll 1
   for (int k = 0; k < prm.iters; ++k) {
     dist = m;
     newton(row, r, m, pd, it);
@@ -708,6 +780,27 @@ recompute_forward_kernel(const float* __restrict__ table, const long long* __res
 #pragma unroll
     for (int x = 0; x < 3; ++x) pd[x] = it.pd_next[x];
   }
+}
+
+// a thread's ray of the forward, every field straight to device memory (the
+// scalar ones with neighbouring threads on neighbouring words).  Every
+// thread computes (a spare thread of the last block on the last ray, a ray
+// whose id lies outside the table on row 0) and branches only at its
+// stores, so the arithmetic runs in converged code, where the compiler
+// keeps uniform values (the loads' memory descriptor) in uniform registers;
+// with early returns before it both kernels measured slower (PERF.md §6)
+__device__ __forceinline__ void forward_ray(const ForwardArgs& a, int ray) {
+  const int rr = ray < a.R ? ray : a.R - 1;
+  const long long id = a.idx[rr];
+  const bool bad = id < 0 || id >= a.P;
+  const Ray3 r = load_ray(a.start, a.direction, rr);
+  const GlobalRow row{a.table + (bad ? 0 : id) * N_COLS};
+
+  Bracket br;
+  bracket(row, r, a.prm, br);
+  Newton it;
+  float dist;
+  forward_iterations(row, r, a.prm, br, it, dist);
 
   // acceptance (cpp:165-167): point close to the ray line AND beyond the slab
   float rel[3];
@@ -717,8 +810,8 @@ recompute_forward_kernel(const float* __restrict__ table, const long long* __res
   float perp[3];
 #pragma unroll
   for (int x = 0; x < 3; ++x) perp[x] = rel[x] - along * r.d[x];
-  const bool accept = (sqrtf(dot3(perp, perp)) <= prm.max_ray_dist) &&
-                      (dist >= (br.further - br.closer) * prm.minimal_ray_distance);
+  const bool accept = (sqrtf(dot3(perp, perp)) <= a.prm.max_ray_dist) &&
+                      (dist >= (br.further - br.closer) * a.prm.minimal_ray_distance);
   // domain classification against divider planes (cpp:169-184)
   int outside = 0;
 #pragma unroll
@@ -728,57 +821,68 @@ recompute_forward_kernel(const float* __restrict__ table, const long long* __res
     outside += (dd < 0.0f ? 1 : 0) << j;
   }
   const int side = outside == 1 ? 0 : outside == 2 ? 1 : outside == 4 ? 2 : WHAT_INTERSECT;
-  what_w[ray] = (br.valid && accept) ? side : WHAT_NONE;
 
-  const bool hit = any_hit[ray] != 0;
-  what[ray] = hit ? WHAT_INTERSECT : WHAT_NONE;
-  distance[ray] = hit ? dist : BIG_F;
-  patch[ray] = hit ? win[ray] : -1;
+  if (ray >= a.R) return;
+  if (bad) {
+    // an id outside the table reads nothing: every field is NaN or none
+    a.what[ray] = a.what_w[ray] = WHAT_NONE;
+    a.patch[ray] = -1;
+    a.distance[ray] = a.cos_out[ray] = NAN;
 #pragma unroll
-  for (int x = 0; x < 3; ++x) {
-    point[3 * ray + x] = it.f[x];
-    normal[3 * ray + x] = it.np.nm[x];
-    bary[3 * ray + x] = it.b[x];
-  }
-  cos_out[ray] = dot3(r.d, it.np.nm);
-}
-
-__global__ void __launch_bounds__(THREADS)
-recompute_backward_kernel(const float* __restrict__ table, const long long* __restrict__ idx,
-                          const float* __restrict__ start,
-                          const float* __restrict__ direction,
-                          const unsigned char* __restrict__ any_hit,
-                          const float* __restrict__ g_distance,
-                          const float* __restrict__ g_point,
-                          const float* __restrict__ g_normal,
-                          const float* __restrict__ g_bary, const float* __restrict__ g_cos,
-                          int P, int R, Params prm, float* __restrict__ rows,
-                          float* __restrict__ g_start, float* __restrict__ g_direction) {
-  const int ray = blockIdx.x * THREADS + threadIdx.x;
-  if (ray >= R) return;
-  const long long id = idx[ray];
-  if (id < 0 || id >= P) {
-    // an id outside the table reads nothing: every gradient is NaN
-    for (int j = 0; j < N_COLS; ++j) rows[static_cast<long long>(ray) * N_COLS + j] = NAN;
-#pragma unroll
-    for (int x = 0; x < 3; ++x) g_start[3 * ray + x] = g_direction[3 * ray + x] = NAN;
+    for (int x = 0; x < 3; ++x) a.point[3 * ray + x] = a.normal[3 * ray + x] =
+        a.bary[3 * ray + x] = NAN;
     return;
   }
-  const Ray3 r = load_ray(start, direction, ray);
-  const GlobalRow row{table + id * N_COLS};
+  a.what_w[ray] = (br.valid && accept) ? side : WHAT_NONE;
+  const bool hit = a.any_hit[ray] != 0;
+  a.what[ray] = hit ? WHAT_INTERSECT : WHAT_NONE;
+  a.distance[ray] = hit ? dist : BIG_F;
+  a.patch[ray] = hit ? a.win[ray] : -1;
+#pragma unroll
+  for (int x = 0; x < 3; ++x) {
+    a.point[3 * ray + x] = it.f[x];
+    a.normal[3 * ray + x] = it.np.nm[x];
+    a.bary[3 * ray + x] = it.b[x];
+  }
+  a.cos_out[ray] = dot3(r.d, it.np.nm);
+}
 
-  // the forward, keeping each iteration's inputs
+// the kernels take their pointers as __restrict__ parameters (no output
+// aliases an input) and gather them into one view
+__global__ void __launch_bounds__(FWD_THREADS, FWD_BLOCKS)
+recompute_forward_kernel(const float* __restrict__ table, const long long* __restrict__ idx,
+                         const float* __restrict__ start, const float* __restrict__ direction,
+                         const unsigned char* __restrict__ any_hit,
+                         const int* __restrict__ win, int P, int R, Params prm,
+                         int* __restrict__ what, float* __restrict__ distance,
+                         float* __restrict__ point, float* __restrict__ normal,
+                         float* __restrict__ bary, float* __restrict__ cos_out,
+                         int* __restrict__ patch, int* __restrict__ what_w) {
+  const ForwardArgs a = {table, idx,    start,   direction, any_hit, win,   P,     R,
+                         prm,   what,   distance, point,    normal,  bary,  cos_out, patch,
+                         what_w};
+  forward_ray(a, blockIdx.x * FWD_THREADS + threadIdx.x);
+}
+
+// the reverse sweep of one ray: re-runs the forward keeping each Newton
+// iteration's inputs in `in`, then takes the iterations back the last one
+// first and the bracket last, adding the row gradient into acc and the
+// ray's into gs and gd
+__device__ __forceinline__ void backward_ray(const BackwardArgs& a, int ray, const GlobalRow& row,
+                                             const Ray3& r, SharedAcc& acc, SharedInputs& in,
+                                             float (&gs)[3], float (&gd)[3]) {
+  const int K = a.prm.iters;
   Bracket br;
-  bracket(row, r, prm, br);
-  float m_in[MAX_ITERS], pd_in[MAX_ITERS][3];
+  bracket(row, r, a.prm, br);
   float m = br.middle;
   float pd[3];
   plane_normal(row, pd);
   float nm_last[3];
-  for (int k = 0; k < prm.iters; ++k) {
-    m_in[k] = m;
+#pragma unroll 1
+  for (int k = 0; k < K; ++k) {
+    in(k, 0) = m;
 #pragma unroll
-    for (int x = 0; x < 3; ++x) pd_in[k][x] = pd[x];
+    for (int x = 0; x < 3; ++x) in(k, 1 + x) = pd[x];
     Newton it;
     newton(row, r, m, pd, it);
     m = it.m_next;
@@ -789,44 +893,127 @@ recompute_backward_kernel(const float* __restrict__ table, const long long* __re
     }
   }
 
-  float acc[N_GRAD];
-#pragma unroll
-  for (int j = 0; j < N_GRAD; ++j) acc[j] = 0.0f;
-  float gs[3] = {0.0f, 0.0f, 0.0f}, gd[3] = {0.0f, 0.0f, 0.0f};
-  const float gc = g_cos[ray];
+  const float gc = a.g_cos[ray];
   float g_nm_out[3];
 #pragma unroll
-  for (int x = 0; x < 3; ++x) g_nm_out[x] = g_normal[3 * ray + x] + gc * r.d[x];
+  for (int x = 0; x < 3; ++x) g_nm_out[x] = a.g_normal[3 * ray + x] + gc * r.d[x];
 #pragma unroll
   for (int x = 0; x < 3; ++x) gd[x] = gd[x] + gc * nm_last[x];
   float g_m = 0.0f, g_pd[3] = {0.0f, 0.0f, 0.0f};
-  const int K = prm.iters;
+#pragma unroll 1
   for (int k = K - 1; k >= 0; --k) {
+    // the fields' cotangents enter at the last iteration
+    const bool last = k == K - 1;
     float g_f[3], g_n[3], g_b[3];
 #pragma unroll
     for (int x = 0; x < 3; ++x) {
-      g_f[x] = k == K - 1 ? g_point[3 * ray + x] : 0.0f;
-      g_n[x] = k == K - 1 ? g_nm_out[x] : 0.0f;
-      g_b[x] = k == K - 1 ? g_bary[3 * ray + x] : 0.0f;
+      g_f[x] = last ? a.g_point[3 * ray + x] : 0.0f;
+      g_n[x] = last ? g_nm_out[x] : 0.0f;
+      g_b[x] = last ? a.g_bary[3 * ray + x] : 0.0f;
     }
-    const float pd_k[3] = {pd_in[k][0], pd_in[k][1], pd_in[k][2]};
     const float g_pdn[3] = {g_pd[0], g_pd[1], g_pd[2]};
-    newton_bwd(row, r, m_in[k], pd_k, g_m, g_pdn, g_f, g_n, g_b, acc, gs, gd, g_m, g_pd);
-    if (k == K - 1) g_m = g_m + (any_hit[ray] != 0 ? g_distance[ray] : 0.0f);
+    const float pd_k[3] = {in(k, 1), in(k, 2), in(k, 3)};
+    newton_bwd(row, r, in(k, 0), pd_k, g_m, g_pdn, g_f, g_n, g_b, acc, gs, gd, g_m, g_pd);
+    if (last) g_m = g_m + (a.any_hit[ray] != 0 ? a.g_distance[ray] : 0.0f);
   }
-  bracket_bwd(row, r, prm, br, g_m, g_pd, acc, gs, gd);
+  bracket_bwd(row, r, a.prm, br, g_m, g_pd, acc, gs, gd);
+}
 
-  float4* out = reinterpret_cast<float4*>(rows + static_cast<long long>(ray) * N_COLS);
+// the backward kernel's first phase: this thread's ray (the last one for a
+// spare thread), its row gradient left in the block's array and its ray
+// gradients stored (none for a spare thread, NaN for a ray whose id lies
+// outside the table), branching at the stores only, as forward_ray
+__device__ __forceinline__ void backward_thread(const BackwardArgs& a, float* acc_s,
+                                                float* in_s, unsigned char* bad_s) {
+  const int t = threadIdx.x;
+  const int ray = blockIdx.x * BWD_THREADS + t;
+  const int rr = ray < a.R ? ray : a.R - 1;
+  const long long id = a.idx[rr];
+  const bool bad = id < 0 || id >= a.P;
+  bad_s[t] = bad;
+  const Ray3 r = load_ray(a.start, a.direction, rr);
+  const GlobalRow row{a.table + (bad ? 0 : id) * N_COLS};
+  SharedAcc acc{acc_s + t};
+  SharedInputs in{in_s + t};
 #pragma unroll
-  for (int q = 0; q < N_GRAD / 4; ++q)
-    out[q] = make_float4(acc[4 * q], acc[4 * q + 1], acc[4 * q + 2], acc[4 * q + 3]);
+  for (int j = 0; j < N_GRAD; ++j) acc[j] = 0.0f;
+  float gs[3] = {0.0f, 0.0f, 0.0f}, gd[3] = {0.0f, 0.0f, 0.0f};
+  backward_ray(a, rr, row, r, acc, in, gs, gd);
+  if (ray >= a.R) return;
+  if (bad) {
+    // an id outside the table reads nothing: every gradient is NaN (its row
+    // by store_rows)
 #pragma unroll
-  for (int q = N_GRAD / 4; q < N_COLS / 4; ++q) out[q] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    for (int x = 0; x < 3; ++x) a.g_start[3 * ray + x] = a.g_direction[3 * ray + x] = NAN;
+    return;
+  }
 #pragma unroll
   for (int x = 0; x < 3; ++x) {
-    g_start[3 * ray + x] = gs[x];
-    g_direction[3 * ray + x] = gd[x];
+    a.g_start[3 * ray + x] = gs[x];
+    a.g_direction[3 * ray + x] = gd[x];
   }
+}
+
+// the backward kernel's second phase: the block's rows as one contiguous
+// span of quads, neighbouring threads on neighbouring quads: 48 gradient
+// columns from the block's array and 12 zeros a row, NaN rows for ids
+// outside the table, the last block's n < BWD_THREADS rows alone
+__device__ __forceinline__ void store_rows(const BackwardArgs& a, const float* acc_s,
+                                           const unsigned char* bad_s) {
+  constexpr int QUADS = N_COLS / 4;
+  const long long base = static_cast<long long>(blockIdx.x) * BWD_THREADS;
+  const int n = a.R - base < BWD_THREADS ? static_cast<int>(a.R - base) : BWD_THREADS;
+  float4* out = reinterpret_cast<float4*>(a.rows + base * N_COLS);
+  for (int q = threadIdx.x; q < n * QUADS; q += BWD_THREADS) {
+    const int i = q / QUADS, c = q - i * QUADS;
+    float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    if (bad_s[i]) {
+      v = make_float4(NAN, NAN, NAN, NAN);
+    } else if (c < N_GRAD / 4) {
+      const float* col = acc_s + 4 * c * ACC_STRIDE + i;
+      v = make_float4(col[0], col[ACC_STRIDE], col[2 * ACC_STRIDE], col[3 * ACC_STRIDE]);
+    }
+    out[q] = v;
+  }
+}
+
+__global__ void __launch_bounds__(BWD_THREADS, BWD_BLOCKS)
+recompute_backward_kernel(const float* __restrict__ table, const long long* __restrict__ idx,
+                          const float* __restrict__ start,
+                          const float* __restrict__ direction,
+                          const unsigned char* __restrict__ any_hit,
+                          const float* __restrict__ g_distance,
+                          const float* __restrict__ g_point,
+                          const float* __restrict__ g_normal,
+                          const float* __restrict__ g_bary, const float* __restrict__ g_cos,
+                          int P, int R, Params prm, float* __restrict__ rows,
+                          float* __restrict__ g_start, float* __restrict__ g_direction) {
+  __shared__ float acc_s[N_GRAD * ACC_STRIDE];
+  __shared__ float in_s[4 * MAX_ITERS * ACC_STRIDE];
+  __shared__ unsigned char bad_s[BWD_THREADS];
+  const BackwardArgs a = {table,   idx,    start,  direction, any_hit, g_distance,
+                          g_point, g_normal, g_bary, g_cos,   P,       R,
+                          prm,     rows,   g_start, g_direction};
+  backward_thread(a, acc_s, in_s, bad_s);
+  __syncthreads();
+  store_rows(a, acc_s, bad_s);
+}
+
+// registers, local bytes (stack frame and spills), static shared bytes,
+// threads a block and blocks an SM of one kernel
+template <class Kernel>
+int kernel_attributes(Kernel kernel, int threads, int* out) {
+  cudaFuncAttributes fa{};
+  int blocks = 0;
+  cudaError_t err = cudaFuncGetAttributes(&fa, kernel);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, threads, 0);
+  out[0] = fa.numRegs;
+  out[1] = static_cast<int>(fa.localSizeBytes);
+  out[2] = static_cast<int>(fa.sharedSizeBytes);
+  out[3] = threads;
+  out[4] = blocks;
+  return static_cast<int>(err);
 }
 
 bool bad_config(int P, int R, int iters, const void* table, const void* rows) {
@@ -848,10 +1035,10 @@ extern "C" int cbtr_recompute(const void* table, const void* idx, const void* st
                               int clamp_secant, void* stream) {
   if (bad_config(P, R, iters, table, table)) return static_cast<int>(cudaErrorInvalidValue);
   if (R == 0) return 0;
-  const Params prm = {ray_plane_eps, estimation_eps, max_ray_dist, minimal_ray_distance, iters,
-                      clamp_secant};
-  recompute_forward_kernel<<<(R + THREADS - 1) / THREADS, THREADS, 0,
-                             static_cast<cudaStream_t>(stream)>>>(
+  const Params prm = {ray_plane_eps, estimation_eps, max_ray_dist, minimal_ray_distance,
+                      iters, clamp_secant};
+  const int grid = (R + FWD_THREADS - 1) / FWD_THREADS;
+  recompute_forward_kernel<<<grid, FWD_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(table), static_cast<const long long*>(idx),
       static_cast<const float*>(start), static_cast<const float*>(direction),
       static_cast<const unsigned char*>(any_hit), static_cast<const int*>(win), P, R, prm,
@@ -875,10 +1062,10 @@ extern "C" int cbtr_recompute_backward(const void* table, const void* idx, const
                                        int clamp_secant, void* stream) {
   if (bad_config(P, R, iters, table, rows)) return static_cast<int>(cudaErrorInvalidValue);
   if (R == 0) return 0;
-  const Params prm = {ray_plane_eps, estimation_eps, max_ray_dist, minimal_ray_distance, iters,
-                      clamp_secant};
-  recompute_backward_kernel<<<(R + THREADS - 1) / THREADS, THREADS, 0,
-                              static_cast<cudaStream_t>(stream)>>>(
+  const Params prm = {ray_plane_eps, estimation_eps, max_ray_dist, minimal_ray_distance,
+                      iters, clamp_secant};
+  const int grid = (R + BWD_THREADS - 1) / BWD_THREADS;
+  recompute_backward_kernel<<<grid, BWD_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(table), static_cast<const long long*>(idx),
       static_cast<const float*>(start), static_cast<const float*>(direction),
       static_cast<const unsigned char*>(any_hit), static_cast<const float*>(g_distance),
@@ -887,4 +1074,12 @@ extern "C" int cbtr_recompute_backward(const void* table, const void* idx, const
       static_cast<float*>(rows), static_cast<float*>(g_start),
       static_cast<float*>(g_direction));
   return static_cast<int>(cudaGetLastError());
+}
+
+// The forward's (backward 0) or the backward kernel's registers, local bytes
+// (stack frame and spills), static shared bytes, threads a block and the
+// blocks an SM holds (out[0..4]).
+extern "C" int cbtr_recompute_attributes(int backward, int* out) {
+  return backward ? kernel_attributes(&recompute_backward_kernel, BWD_THREADS, out)
+                  : kernel_attributes(&recompute_forward_kernel, FWD_THREADS, out);
 }

@@ -394,8 +394,9 @@ def recompute_rows(device) -> dict:
     the forward's fields (`digest`: the same in every checkout whose forward
     is bit-equal) and of the gradients (`grad_digest`: the same within a
     checkout), the time of each (CUDA events), its device ops and device-busy
-    ms (torch.profiler) and the peak memory above the inputs of the forward
-    with its backward."""
+    ms (torch.profiler), the device ms by kernel a call over 20 calls
+    (`_per_call`: the recompute kernels' own time) and the peak memory above
+    the inputs of the forward with its backward."""
     from cbtr_tpu_torch.harness.profile_step import _busy
     from cbtr_tpu_torch.models import scene_ortho_grid
 
@@ -435,6 +436,9 @@ def recompute_rows(device) -> dict:
         row["step_ms"] = time_ms(step, windows=5, inner=1)
         row["forward_profile"] = _busy(forward, True)
         row["step_profile"] = _busy(step, True)
+        # each kernel's own device time a call (the recompute kernels by name)
+        row["forward_per_call"] = _per_call(forward)
+        row["step_per_call"] = _per_call(step)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         before = torch.cuda.memory_allocated()

@@ -9,8 +9,9 @@ rays, 128 x 128 image, zero target):
   clock, no synchronisation), mean over --runs forwards;
 * the forward with grad and the backward alone (CUDA events, median of
   --runs), the same stages inside the backward (the recompute re-run by a
-  chunk's checkpoint, the recompute's backward kernel, the segment sums of
-  its row gradients), and the step's peak device memory; the recompute's
+  chunk's checkpoint on the plain version; on the kernels no chunk is
+  checkpointed: the recompute's backward kernel, the segment sums of its
+  row gradients), and the step's peak device memory; the recompute's
   forward and backward kernels are stages of their own
   (`cuda_recompute.launch_forward`, `launch_backward`: on the card only);
 * torch.profiler over one forward and one step: device ops run and the

@@ -41,15 +41,19 @@ each direction in one launch.
   gradients by winner id, as `gather_rows`' backward was, so every path
   stays bit-reproducible between runs.
 
-`recompute` is what `intersect.recompute_winner` calls: CPU tensors run
-`recompute_reference`; CUDA tensors run `_Recompute`, whose forward and
-backward launch the kernels (`launch_forward`, `launch_backward`) and
-raise if a build or launch fails.  No path falls back from one to the
-other.  `COUNTED` holds the launch counts: one a forward, one a backward.
+`recompute` is what `intersect.recompute_winner` calls: CPU tensors and
+backend "plain" run `recompute_reference`; CUDA tensors on backend "auto"
+(`on_kernels`) run `_Recompute`, whose forward and backward launch the
+kernels (`launch_forward`, `launch_backward`) and raise if a build or
+launch fails.  No path falls back from one to the other.  `COUNTED` holds
+the launch counts: one a forward, one a backward.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import dataclasses
+import re
 
 import torch
 from torch.autograd.function import once_differentiable
@@ -657,6 +661,69 @@ def _library():
     return lib
 
 
+# cbtr_recompute_attributes' out[0..4]
+ATTRIBUTE_NAMES = ("registers", "local_bytes", "shared_bytes", "threads", "blocks_per_sm")
+
+
+def attributes(backward: bool) -> dict:
+    """The forward or the backward kernel's build and occupancy
+    (ATTRIBUTE_NAMES): the device's answer for its registers, local memory
+    (stack frame and spills) and static shared memory, and the blocks of
+    its launch one SM holds."""
+    lib = _library()
+    entry = lib.cbtr_recompute_attributes
+    entry.restype = ctypes.c_int
+    entry.argtypes = [_CI, _VP]
+    out = (ctypes.c_int * len(ATTRIBUTE_NAMES))()
+    rc = entry(int(backward), ctypes.cast(out, _VP))
+    if rc != 0:
+        raise RuntimeError(f"cbtr_recompute_attributes failed: "
+                           f"{lib.cbtr_cuda_error_string(rc).decode()} ({rc})")
+    return dict(zip(ATTRIBUTE_NAMES, out))
+
+
+def ptxas_summary(log: str) -> dict:
+    """{"recompute_forward_kernel" | "recompute_backward_kernel": {stack,
+    spill_stores, spill_loads, registers, shared_bytes}} from nvcc's
+    -Xptxas -v output (`cuda_sweep.build_library`'s log)."""
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Function properties for \S*?(recompute_(?:forward|backward)_kernel)", line)
+        if m:
+            name = m.group(1)
+            out[name] = {}
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill "
+                      r"loads", line)
+        if m:
+            out[name].update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                             spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            smem = re.search(r"(\d+) bytes smem", line)
+            out[name].update(registers=int(m.group(1)),
+                             shared_bytes=int(smem.group(1)) if smem else 0)
+            name = None
+    return out
+
+
+@contextlib.contextmanager
+def newton_iterations(n: int):
+    """The recompute at n Newton iterations, the kernels (`_config`) and
+    their plain versions (which read `intersect`'s config) alike."""
+    from . import intersect as ix
+
+    global CFG
+    saved = CFG, ix.CFG
+    CFG = ix.CFG = dataclasses.replace(CFG, root_search_iterations=n)
+    try:
+        yield
+    finally:
+        CFG, ix.CFG = saved
+
+
 def _config():
     iters = int(CFG.root_search_iterations)
     if not 1 <= iters <= _MAX_ITERS:
@@ -747,50 +814,80 @@ def launch_backward(table, idx, start, direction, any_hit, g_distance, g_point, 
     return rows, g_start, g_dir
 
 
+def winner_ids(win):
+    """The rows the recompute reads: win clamped to >= 0, as int64 (a miss's
+    -1 reads row 0; its fields are masked by any_hit)."""
+    return win.clamp_min(0).to(torch.int64)
+
+
 class _Recompute(torch.autograd.Function):
     """The recompute on the kernels: forward `launch_forward`, backward
     `launch_backward` and the segment sum of the row gradients into the
-    table.  It saves only its inputs, so a chunk's checkpoint re-runs it
-    like any op.  The launchers are looked up at each call."""
+    table.  Both take the rows `winner_ids(win)`.  It saves only its inputs,
+    the int32 `win` among them (its backward re-runs the forward in
+    registers and takes the ids again), so `intersect_rays` calls it without
+    a checkpoint.  `values` holds the table's numbers, which the kernels
+    read and the backward keeps in the table's place: a caller that packs
+    the table for each chunk passes the numbers of one packing, so that
+    every chunk holds that one and its own packing is freed.  The launchers
+    are looked up at each call."""
 
     @staticmethod
-    def forward(ctx, table, idx, start, direction, any_hit, win):
-        out = launch_forward(table, idx, start, direction, any_hit, win)
-        ctx.save_for_backward(table, idx, start, direction, any_hit)
+    def forward(ctx, table, start, direction, any_hit, win, values):
+        out = launch_forward(values, winner_ids(win), start, direction, any_hit, win)
+        ctx.save_for_backward(values, start, direction, any_hit, win)
         ctx.mark_non_differentiable(out[0], out[6], out[7])
         return out
 
     @staticmethod
     @once_differentiable
     def backward(ctx, _what, g_dist, g_point, g_normal, g_bary, g_cos, _patch, _what_w):
-        table, idx, start, direction, any_hit = ctx.saved_tensors
+        table, start, direction, any_hit, win = ctx.saved_tensors
+        idx = winner_ids(win)
         rows, g_start, g_dir = launch_backward(
             table, idx, start, direction, any_hit, g_dist.contiguous(), g_point.contiguous(),
             g_normal.contiguous(), g_bary.contiguous(), g_cos.contiguous())
         g_table = (cuda_segment._sum(idx, rows, table.shape[0])
                    if ctx.needs_input_grad[0] else None)
-        return (g_table, None, g_start if ctx.needs_input_grad[2] else None,
-                g_dir if ctx.needs_input_grad[3] else None, None, None)
+        return (g_table, g_start if ctx.needs_input_grad[1] else None,
+                g_dir if ctx.needs_input_grad[2] else None, None, None, None)
 
 
-def recompute(table, idx, start, direction, any_hit, win):
-    """Recompute wrapper: (RayHit, gate-OFF what), as `recompute_reference`.
-
-    CPU tensors go to `recompute_reference`; CUDA tensors run `_Recompute`
-    on the kernels (f32 table and rays, int64 ids, int32 win: anything else
-    raises), and a build or launch failure raises: there is no fallback
-    between the two."""
-    if not table.is_cuda:
-        return recompute_reference(table, idx, start, direction, any_hit, win)
-    return recompute_kernels(table, idx, start, direction, any_hit, win)
+def on_kernels(table, backend: str = "auto") -> bool:
+    """Whether `recompute` runs on the kernel pair (`_Recompute`): a CUDA
+    table on backend "auto" (`intersect.BACKENDS`).  The pair keeps no
+    residuals, only its inputs, so a checkpoint around it would save nothing
+    and launch its forward again in the backward; the plain version keeps
+    every Newton residual."""
+    return backend == "auto" and table.is_cuda
 
 
-def recompute_kernels(table, idx, start, direction, any_hit, win):
+def recompute(table, start, direction, any_hit, win, backend: str = "auto", values=None):
+    """Recompute wrapper: (RayHit, gate-OFF what) of each ray on its
+    winner's row `winner_ids(win)`, as `recompute_reference`.
+
+    Where `on_kernels` (CUDA tensors, backend "auto") it runs `_Recompute`
+    on the kernels (f32 table and rays, int32 win: anything else raises),
+    and a build or launch failure raises; otherwise `recompute_reference`.
+    There is no fallback between the two.  values: the table's numbers
+    from a packing the caller keeps for several calls (`_Recompute`; None:
+    the table's own)."""
+    if not on_kernels(table, backend):
+        return recompute_reference(table, winner_ids(win), start, direction, any_hit, win)
+    return recompute_kernels(table, start, direction, any_hit, win, values=values)
+
+
+def recompute_kernels(table, start, direction, any_hit, win, values=None):
     """`_Recompute` on the launchers: (RayHit, gate-OFF what)."""
     from . import intersect as ix
 
-    out = _Recompute.apply(table.contiguous(), idx.contiguous(), start.contiguous(),
-                           direction.contiguous(), any_hit.contiguous(), win.contiguous())
+    table = table.contiguous()
+    values = table.detach() if values is None else values.detach().contiguous()
+    if values.shape != table.shape:
+        raise ValueError(f"values {tuple(values.shape)} are not the table's numbers "
+                         f"{tuple(table.shape)}")
+    out = _Recompute.apply(table, start.contiguous(), direction.contiguous(),
+                           any_hit.contiguous(), win.contiguous(), values)
     return ix.RayHit(*out[:7]), out[7]
 
 

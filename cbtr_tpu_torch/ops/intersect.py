@@ -278,7 +278,7 @@ def select_candidates(code, dist, neighbours):
 
 
 def recompute_winner(patches: BezierPatches, start, direction, any_hit, win,
-                     with_check: bool = False, backend: str = "auto"):
+                     with_check: bool = False, backend: str = "auto", values=None):
     """Differentiable re-evaluation of each ray's winning patch.
 
     start, direction [R, 3]; any_hit [R] bool, win [R] i32 from the winner
@@ -288,6 +288,9 @@ def recompute_winner(patches: BezierPatches, start, direction, any_hit, win,
     launch raises), CPU tensors their plain version; "plain": the plain
     version (`cuda_recompute.recompute_reference`: one [R, 60] row gather
     from the packed table, then `patch_candidates`) on any device.
+    values: the packed table's numbers, packed once by a caller with many
+    chunks; the kernels read and keep those in place of this call's
+    packing (`cuda_recompute.recompute`).
 
     with_check=True additionally returns the number of rays whose winner the
     sweep accepted but the recompute rejects (``what != cIntersect``); a
@@ -295,10 +298,8 @@ def recompute_winner(patches: BezierPatches, start, direction, any_hit, win,
     """
     if backend not in BACKENDS:
         raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
-    idx = win.clamp_min(0).to(torch.int64)
-    run = (cuda_recompute.recompute_reference if backend == "plain"
-           else cuda_recompute.recompute)
-    hit, what_w = run(patches.packed_f32(), idx, start, direction, any_hit, win)
+    hit, what_w = cuda_recompute.recompute(patches.packed_f32(), start, direction, any_hit, win,
+                                           backend=backend, values=values)
     if with_check:
         return hit, int((any_hit & (what_w != WHAT_INTERSECT)).sum())
     return hit
@@ -432,9 +433,14 @@ def intersect_rays(patches: BezierPatches, start, direction,
     """Intersect a batch of rays with the whole Bezier surface.
 
     start/direction: [..., 3].  chunk_size > 0 scans the ray axis in chunks
-    of that size; each chunk's recompute is checkpointed, so backward keeps
-    only the 5 B/ray winner and re-runs the O(rays) recompute instead of
-    holding every chunk's Newton residuals.
+    of that size.  On the recompute kernels (`cuda_recompute.on_kernels`:
+    CUDA patches, backend "auto") a chunk's recompute is called directly: the
+    kernel pair keeps no residuals, only its inputs (the packed table's
+    numbers, packed once here for every chunk), and its backward re-runs
+    the forward in registers.  On the plain version (CPU tensors, backend
+    "plain") each chunk's recompute is checkpointed, so backward keeps only
+    the 5 B/ray winner and re-runs the O(rays) recompute instead of holding
+    every chunk's Newton residuals.
     backend: "auto" (CUDA kernel for GPU tensors, plain twin for CPU
     tensors) or "plain" (the twin on any device; for comparisons).
     tables: `winner_tables(patches, backend)` where the caller has them (a
@@ -452,12 +458,18 @@ def intersect_rays(patches: BezierPatches, start, direction,
         tables = winner_tables(patches, backend)
 
     if chunk_size and R > chunk_size:
+        values = (patches.detach().packed_f32()
+                  if cuda_recompute.on_kernels(patches.control_points, backend) else None)
         chunks = []
         for r0 in range(0, R, chunk_size):
             sc, dc = s[r0:r0 + chunk_size], d[r0:r0 + chunk_size]
             ah, w = _winner_chunk(patches, sc, dc, backend, tables=tables)
-            chunks.append(checkpoint(recompute_winner, patches, sc, dc, ah, w, False,
-                                     backend, use_reentrant=False))
+            if values is not None:
+                chunks.append(recompute_winner(patches, sc, dc, ah, w, backend=backend,
+                                               values=values))
+            else:
+                chunks.append(checkpoint(recompute_winner, patches, sc, dc, ah, w, False,
+                                         backend, use_reentrant=False))
         hit = RayHit(*(torch.cat(fields, dim=0) for fields in zip(*chunks)))
     else:
         hit = _intersect_chunk(patches, s, d, backend, tables=tables)

@@ -47,7 +47,10 @@ Phases:
 
   0  a CUDA device (exit 1 without one), the card, the versions, the build
      of every kernel (one nvcc per source, in parallel) with each kernel's
-     registers and spills (ptxas), K1's and K2's CTAs per SM; the native
+     registers and spills (ptxas), K1's and K2's CTAs per SM, and for each
+     recompute kernel its registers, stack, spills and shared memory
+     (ptxas) and the blocks an SM and occupancy the device gives it; the
+     native
      preprocessing runtime built with g++ (its time; a failed build raises
      with g++'s message) before any scene, so every lens below starts from
      the JAX package's default mesh
@@ -228,12 +231,14 @@ Phases:
      autograd's through the twin, its peak memory and its bound (the plain
      versions' f32 operations, counted on the CPU, over the f32 peak, or its
      bytes over the HBM rate); the device ops of `recompute_winner` forward
-     and with its backward on the kernels.  It runs after phase t, before
+     and with its backward on the kernels; at the headline, both kernels
+     torch.equal to the plain versions at every Newton count (1-8), forward
+     and backward.  It runs after phase t, before
      any long profiler session (a short call's records can go missing after
      one); at the end, every path's recompute launches (a train, fit,
      refined or design step 2 forward and 2 backward; a 4K render 32
-     forward; a 4K step 64 forward, the checkpoints' 32 among them, and 32
-     backward)
+     forward; a 4K step 32 forward and 32 backward: no chunk is
+     checkpointed on the kernels)
   i  with --against DIR (the root of another checkout, e.g. an earlier
      commit unpacked by `git archive`): that checkout against this one, each
      in fresh processes, in turns (DIR, this, this, DIR): K1, K2 and K3
@@ -1195,14 +1200,15 @@ def _scale_phase(dev, card, kernels):
           f"{path_launches['emitter4k']}", flush=True)
     # one K1 launch, one ray pack and one recompute forward a chunk, for
     # each of the two refractions, on tables built once; one segment sum a
-    # render (the scatter splat) and, in a step, each chunk's recompute again
-    # (its checkpoint), its backward and the segment sum of its row gradients
+    # render (the scatter splat) and, in a step, each chunk's recompute
+    # backward and the segment sum of its row gradients (no checkpoint: the
+    # kernel pair keeps no residuals, so the forward runs once a chunk)
     def one_pass(rays, chunk, step=False):
         chunks = -(-rays // chunk)
         return {"sweep_select": 2 * chunks, "winner": 0, "sweep_codes": 0, "fma_chains": 0,
                 "tables": 1, "pack_rays": 2 * chunks,
                 "segment_sum": 1 + (2 * chunks if step else 0),
-                "recompute_forward": 2 * chunks * (2 if step else 1),
+                "recompute_forward": 2 * chunks,
                 "recompute_backward": 2 * chunks if step else 0}
 
     chunk = render["chunk"]
@@ -1435,6 +1441,29 @@ def _segment_phase(dev, card, scene, win):
     del shapes, splat_ids, splat_vals
     torch.cuda.empty_cache()
     return rows
+
+
+def _recompute_build(build_log: str) -> dict:
+    """Phase 0's line for each recompute kernel: ptxas's registers, stack
+    frame, spills and shared memory (`cuda_recompute.ptxas_summary` of the
+    build's output) and the device's answer for the build
+    (`cuda_recompute.attributes`: the registers, local and shared bytes, the
+    blocks of a launch an SM holds and the occupancy that follows, of 64
+    warps an SM).  Returns {kind: numbers}, kind "forward" or "backward"."""
+    from cbtr_tpu_torch.ops import cuda_recompute as cr
+
+    ptxas = cr.ptxas_summary(build_log)
+    out = {}
+    for kind in ("forward", "backward"):
+        name = f"recompute_{kind}_kernel"
+        a = cr.attributes(kind == "backward")
+        a["occupancy"] = a["threads"] * a["blocks_per_sm"] / 2048
+        out[kind] = dict(ptxas=ptxas.get(name), **a)
+        print(f"[0] {name}: ptxas {ptxas.get(name) or 'silent (built earlier)'}; the device: "
+              f"{a['registers']} registers, {a['local_bytes']} local bytes, "
+              f"{a['shared_bytes']} shared bytes, {a['threads']} threads x "
+              f"{a['blocks_per_sm']} blocks an SM, occupancy {a['occupancy']:.3f}", flush=True)
+    return out
 
 
 # the shape of the main path's recompute (the headline step's), whose
@@ -1684,6 +1713,27 @@ def _recompute_phase(dev, card, scene):
         torch.cuda.empty_cache()
     del s4, d4, refined
     torch.cuda.empty_cache()
+    # both kernels at every Newton count (1-8) at the headline, forward and
+    # backward, against the plain versions at that count
+    with torch.no_grad():
+        any_hit, win, _ = cs.sweep_select(scene.patches, scene.start, scene.direction)
+    args = (scene.patches.packed_f32().detach().contiguous(), win.clamp_min(0).to(torch.int64),
+            scene.start.contiguous(), scene.direction.contiguous(), any_hit, win)
+    R = args[1].shape[0]
+    gen = torch.Generator(device=dev).manual_seed(14)
+    cot = [torch.where(any_hit if len(shape) == 1 else any_hit[:, None],
+                       torch.randn(shape, generator=gen, device=dev), 0.0)
+           for shape in ((R,), (R, 3), (R, 3), (R, 3), (R,))]
+    for n in range(1, cr._MAX_ITERS + 1):
+        with cr.newton_iterations(n):
+            got_f, want_f = cr.launch_forward(*args), cr.recompute_forward_reference(*args)
+            got_b = cr.launch_backward(*args[:5], *cot)
+            want_b = cr.recompute_adjoint_reference(*args[:5], *cot)
+            torch.cuda.synchronize()
+        differ = [int((g != w).sum()) for g, w in zip(got_f + got_b, want_f + want_b)]
+        assert not any(differ), (n, differ)
+    print(f"[r] recompute {_REC_MAIN}: both kernels torch.equal to the plain versions at "
+          f"every Newton count (1-{cr._MAX_ITERS}), forward and backward", flush=True)
     return rows
 
 
@@ -1742,6 +1792,7 @@ def main(argv=None) -> int:
     print(f"[0] CTAs per SM: K1 {cs.occupancy('sweep_select', 512)} (P_pad 512), K2 "
           f"{cs.occupancy('winner', 1920)} (P_pad 1920), "
           f"{cs.occupancy('winner', 16256)} (P_pad 16,256)", flush=True)
+    rec_build = _recompute_build(build_log)
     # the native preprocessing runtime, before any scene: every lens below
     # starts from the mesh the JAX package's default preprocess gives
     fresh = not os.path.exists(native.LIB_PATH)
@@ -2533,7 +2584,8 @@ def main(argv=None) -> int:
     # ---- r (the summary; the phase ran after phase t) --------------------------------
     # each path's recompute launches (counts set to 0 just before each path):
     # a forward and a backward a refraction a step, a forward a chunk a
-    # refraction a render, and in a step each chunk's again (its checkpoint)
+    # refraction a render, and in a step a backward a chunk too (no chunk is
+    # checkpointed on the kernels, so its forward runs once)
     rec_launches = {
         "train step": (main_launches, 3), "fit step": (fit_launches, 6),
         "refined step": (large_launches, 3),
@@ -2546,7 +2598,7 @@ def main(argv=None) -> int:
     print(f"[r] {card} | recompute kernel launches by path (forward, backward): "
           f"{rec_launches}", flush=True)
     assert rec_launches == {"train step": (2, 2), "fit step": (2, 2), "refined step": (2, 2),
-                            "design step": (2, 2), "4K render": (32, 0), "4K step": (64, 32),
+                            "design step": (2, 2), "4K render": (32, 0), "4K step": (32, 32),
                             "emitter render": (32, 0)}, rec_launches
 
     # ---- i: another checkout against this one ------------------------------------
@@ -2766,6 +2818,7 @@ def main(argv=None) -> int:
             "bound_by": rec_rows[_REC_MAIN][kind]["bound"][1],
             "library_ms": None,
             "kernel_only_ms": rec_rows[_REC_MAIN][kind]["kernel_ms"],
+            "build": rec_build[kind],
             "shapes": {name: {k: r[kind][k] for k in ("ms", "kernel_ms", "plain_ms", "peak_gib")}
                        | {"bound_ms": r[kind]["bound"][0], "path_device_ops": r["path_device_ops"]}
                        for name, r in rec_rows.items()},

@@ -27,6 +27,7 @@ routing of `intersect.recompute_winner`, and the kernels' source compiled
 for the host (`test_kernel_source_on_the_host`).
 """
 import ctypes
+import inspect
 import os
 import re
 import shutil
@@ -365,10 +366,18 @@ def test_edge_lane_vanished_step():
 @pytest.fixture
 def plain_launchers(monkeypatch):
     """`_Recompute` on CPU tensors: the plain forward and backward in place of
-    the kernels' launchers, and `recompute` routed to it."""
+    the kernels' launchers, and the kernel route (`on_kernels`) taken on
+    backend "auto" as for CUDA tensors."""
     monkeypatch.setattr(cr, "launch_forward", cr.recompute_forward_reference)
     monkeypatch.setattr(cr, "launch_backward", cr.recompute_adjoint_reference)
-    monkeypatch.setattr(cr, "recompute", cr.recompute_kernels)
+    monkeypatch.setattr(cr, "on_kernels", lambda table, backend="auto": backend == "auto")
+
+
+def _kernels_with_ids(table, idx, start, direction, any_hit, win):
+    """`recompute_kernels` in `_autograd`'s signature: the Function takes its
+    ids from `win` (idx is `winner_ids(win)` in every caller here)."""
+    assert torch.equal(idx, cr.winner_ids(win))
+    return cr.recompute_kernels(table, start, direction, any_hit, win)
 
 
 def test_function_gradients_are_the_adjoint(cases, plain_launchers):
@@ -378,18 +387,75 @@ def test_function_gradients_are_the_adjoint(cases, plain_launchers):
     table = c["port"].packed_f32()
     args = (c["idx"], c["start"], c["direction"], c["any_hit"], c["win"])
     cot = _cotangents(c["start"].shape[0], seed=5)
-    hit, what_w = cr.recompute_kernels(table, *args)
+    hit, what_w = _kernels_with_ids(table, *args)
     want_hit, want_what = cr.recompute_reference(table, *args)
     assert all(torch.equal(a, b) for a, b in zip(hit, want_hit))
     assert torch.equal(what_w, want_what)
-    got = _autograd(table, *args, cot, recompute=cr.recompute_kernels)
+    got = _autograd(table, *args, cot, recompute=_kernels_with_ids)
     want = _adjoint(table, c["idx"], c["start"], c["direction"], c["any_hit"], cot)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
+def test_function_keeps_the_int32_winners(cases, plain_launchers):
+    """Between its forward and its backward the Function holds its inputs
+    and, of the ids, the int32 winners (4 bytes a ray, what a chunk's
+    checkpoint held), not the int64 ids: with no checkpoint on the kernel
+    route, a 4K step keeps 64 chunks' worth of them."""
+    c = cases["robot"]
+    table = c["port"].packed_f32().detach().requires_grad_(True)
+    hit, _ = cr.recompute_kernels(table, c["start"], c["direction"], c["any_hit"], c["win"])
+    saved = hit.point.grad_fn.saved_tensors
+    assert [t.dtype for t in saved] == [torch.float32, torch.float32, torch.float32,
+                                        torch.bool, torch.int32]
+    assert torch.equal(saved[4], c["win"])
+    assert saved[0].data_ptr() == table.data_ptr()      # the table's own numbers
+
+
+def test_function_takes_its_ids_from_win(cases, plain_launchers, monkeypatch):
+    """The Function has no ids of its own to disagree with its winners: its
+    forward and its backward both read the rows `winner_ids(win)` (a miss's
+    -1 on row 0), and `recompute` takes no ids."""
+    c = cases["robot"]
+    seen = []
+
+    def forward(table, idx, *rest):
+        seen.append(("forward", idx))
+        return cr.recompute_forward_reference(table, idx, *rest)
+
+    def backward(table, idx, *rest):
+        seen.append(("backward", idx))
+        return cr.recompute_adjoint_reference(table, idx, *rest)
+
+    monkeypatch.setattr(cr, "launch_forward", forward)
+    monkeypatch.setattr(cr, "launch_backward", backward)
+    win = torch.where(c["any_hit"], c["win"], -1)
+    assert bool((win < 0).any())
+    cot = _cotangents(win.shape[0], seed=8)
+    got = _autograd(c["port"].packed_f32(), cr.winner_ids(win), c["start"], c["direction"],
+                    c["any_hit"], win, cot, recompute=_kernels_with_ids)
+    want = _adjoint(c["port"].packed_f32(), cr.winner_ids(win), c["start"], c["direction"],
+                    c["any_hit"], cot)
+    assert [kind for kind, _ in seen] == ["forward", "backward"]
+    assert all(torch.equal(idx, cr.winner_ids(win)) for _, idx in seen)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    for f in (cr.recompute, cr.recompute_kernels):
+        assert "idx" not in inspect.signature(f).parameters
+
+
+def test_function_values_are_the_tables_shape(cases, plain_launchers):
+    """The numbers a caller packs once for many chunks must be a table of
+    the table's shape."""
+    c = cases["robot"]
+    table = c["port"].packed_f32()
+    with pytest.raises(ValueError, match="table's numbers"):
+        cr.recompute_kernels(table, c["start"], c["direction"], c["any_hit"], c["win"],
+                             values=table[:-1])
+
+
 def _leaf_grads(port, start, direction, chunk, backend="auto"):
     """Gradients of every float leaf and of the rays through intersect_rays
-    (chunked: each chunk's recompute under checkpoint)."""
+    (chunked: each chunk's recompute under checkpoint, or on the kernel
+    route called directly)."""
     leaves = {k: v.detach().clone().requires_grad_(k != "neighbours")
               for k, v in port.leaves().items()}
     patches = type(port)(**leaves)
@@ -405,17 +471,85 @@ def _leaf_grads(port, start, direction, chunk, backend="auto"):
     return grads, s.grad, d.grad
 
 
-def test_checkpointed_chunks_match_one_chunk(cases, plain_launchers):
+def test_checkpointed_chunks_match_one_chunk(cases, plain_launchers, monkeypatch):
     """intersect_rays in chunks of 256 (each recompute under checkpoint,
-    re-run in the backward) gives the gradients of one chunk; the table's
-    sum over the chunks is associated otherwise, the rays' are equal."""
+    re-run in the backward: the plain route) gives the gradients of one
+    chunk; the table's sum over the chunks is associated otherwise, the
+    rays' are equal."""
     c = cases["robot"]
+    monkeypatch.setattr(cr, "on_kernels", lambda table, backend="auto": False)
     one, s1, d1 = _leaf_grads(c["port"], c["start"], c["direction"], 0)
     chunked, s4, d4 = _leaf_grads(c["port"], c["start"], c["direction"], 256)
     assert torch.equal(s1, s4) and torch.equal(d1, d4)
     for k in one:
         torch.testing.assert_close(chunked[k], one[k], rtol=1e-5,
                                    atol=1e-6 * float(one[k].abs().max()))
+
+
+def test_kernel_route_needs_no_checkpoint(cases, plain_launchers, monkeypatch):
+    """intersect_rays in chunks of 256 on the kernel route (the route switch
+    `cuda_recompute.on_kernels` set, as for CUDA patches) calls each chunk's
+    recompute directly: the forward launches once a chunk, not again in the
+    backward, and every leaf and ray gradient is the checkpointed run's (the
+    plain route, its forward run twice a chunk), bit for bit."""
+    c = cases["robot"]
+    launches, plain = [], []
+
+    def counted(*args):
+        launches.append(args[1].shape[0])
+        return cr.recompute_forward_reference(*args)
+
+    def counted_plain(table, idx, *rest):
+        plain.append(idx.shape[0])
+        return reference(table, idx, *rest)
+
+    reference = cr.recompute_reference
+    monkeypatch.setattr(cr, "launch_forward", counted)
+    runs = {}
+    for route in (False, True):
+        monkeypatch.setattr(cr, "on_kernels", lambda table, backend="auto", r=route: r)
+        monkeypatch.setattr(cr, "recompute_reference", reference if route else counted_plain)
+        launches.clear()
+        runs[route] = _leaf_grads(c["port"], c["start"], c["direction"], 256)
+        runs[route] += (list(launches),)
+    assert runs[True][3] == [256] * 4
+    assert runs[False][3] == [] and plain == [256] * 8  # each checkpoint runs it again
+    assert all(torch.equal(runs[True][0][k], runs[False][0][k]) for k in runs[False][0])
+    assert torch.equal(runs[True][1], runs[False][1])
+    assert torch.equal(runs[True][2], runs[False][2])
+
+
+def test_kernel_route_holds_one_packing(cases, plain_launchers):
+    """On the kernel route every chunk's Function keeps the numbers of one
+    packing of the table, made once for the call, not a packing a chunk."""
+    c = cases["robot"]
+    leaves = {k: v.detach().clone().requires_grad_(k != "neighbours")
+              for k, v in c["port"].leaves().items()}
+    hit = ix.intersect_rays(type(c["port"])(**leaves), c["start"], c["direction"],
+                            chunk_size=256)
+    nodes, todo, seen = [], [hit.point.grad_fn], set()
+    while todo:
+        node = todo.pop()
+        if node is None or node in seen:
+            continue
+        seen.add(node)
+        if "_Recompute" in type(node).__name__:
+            nodes.append(node)
+        todo.extend(n for n, _ in node.next_functions)
+    assert len(nodes) == 4
+    assert len({n.saved_tensors[0].data_ptr() for n in nodes}) == 1
+
+
+def test_kernel_route_is_cuda_and_auto(cases):
+    """The route switch: the kernels (no checkpoint) for CUDA tables on
+    backend "auto" only."""
+    table = cases["robot"]["port"].packed_f32().detach()
+    assert not cr.on_kernels(table, "auto")
+    assert not cr.on_kernels(table.to("meta"), "auto")
+    cuda_looking = table.as_subclass(_CudaLooking)
+    assert cr.on_kernels(cuda_looking, "auto")
+    assert cr.on_kernels(cuda_looking)
+    assert not cr.on_kernels(cuda_looking, "plain")
 
 
 def test_design_gradient_reaches_every_leaf(cases, plain_launchers):
@@ -451,7 +585,7 @@ def test_cpu_tensors_run_the_twin(cases, monkeypatch):
     hit = ix.recompute_winner(*args)
     want, _ = cr.recompute_reference(c["port"].packed_f32(), c["idx"], *args[1:])
     assert all(torch.equal(a, b) for a, b in zip(hit, want))
-    monkeypatch.setattr(cr, "recompute", _banned)
+    monkeypatch.setattr(cr, "recompute_kernels", _banned)
     plain, rejects = ix.recompute_winner(*args, with_check=True, backend="plain")
     assert all(torch.equal(a, b) for a, b in zip(plain, want)) and rejects == 0
     with pytest.raises(ValueError, match="backend"):
@@ -472,7 +606,7 @@ def test_cuda_tensors_never_reach_the_twin(cases, monkeypatch):
     c = cases["robot"]
     monkeypatch.setattr(cr, "recompute_reference", _banned)
     table = c["port"].packed_f32().detach().as_subclass(_CudaLooking)
-    args = (c["idx"], c["start"], c["direction"], c["any_hit"], c["win"])
+    args = (c["start"], c["direction"], c["any_hit"], c["win"])
     # the real launcher refuses tensors that are not on a CUDA device
     with pytest.raises(ValueError, match="CUDA tensors"):
         cr.recompute(table, *args)
@@ -502,23 +636,36 @@ def test_launchers_check_their_inputs(cases):
 # the kernels' source, compiled for the host
 # ---------------------------------------------------------------------------
 
-# what the CUDA source needs from the CUDA headers, for a host compiler; the
-# kernels' launches become a loop over the rays
+# what the CUDA source needs from the CUDA headers, for a host compiler: a
+# block's index and its threads' are plain variables that the loops below
+# set, and shared memory is static
 _HOST_HEADER = r"""
 #pragma once
 #include <cmath>
+#include <cstddef>
 #define __global__
 #define __device__
 #define __forceinline__ inline
-#define __launch_bounds__(x)
+#define __launch_bounds__(...)
 #define __restrict__
+#define __shared__ static
 struct float4 { float x, y, z, w; };
 inline float4 make_float4(float a, float b, float c, float d) { return {a, b, c, d}; }
 template <class T> inline T __ldg(const T* p) { return *p; }
+struct HostIndex { unsigned x; };
+static HostIndex threadIdx, blockIdx;
 typedef void* cudaStream_t;
 enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
 inline const char* cudaGetErrorString(cudaError_t) { return ""; }
+struct cudaFuncAttributes { int numRegs; size_t localSizeBytes, sharedSizeBytes; };
+template <class F> inline cudaError_t cudaFuncGetAttributes(cudaFuncAttributes*, F) {
+  return cudaSuccess;
+}
+template <class F>
+inline cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int*, F, int, size_t) {
+  return cudaSuccess;
+}
 """
 # the PTX max/min with NaN propagation, in C
 _HOST_MINMAX = {
@@ -527,11 +674,68 @@ _HOST_MINMAX = {
     'asm("min.NaN.f32 %0, %1, %2;" : "=f"(m) : "f"(a), "f"(b));':
         "m = (a != a || b != b) ? NAN : (a < b ? a : (b < a ? b : (std::signbit(a) ? a : b)));",
 }
+_KERNEL = re.compile(r"__global__ void __launch_bounds__\((\w+), \w+\)\s+(\w+)\([^)]*\) \{\n")
+_LAUNCH = re.compile(r"(\w+)<<<(\w+), [^;]*?>>>")
 
 
-def _host_library(tmp_path):
+def _closing_brace(src, start):
+    """The index of the brace that closes the one just before `start`."""
+    depth = 1
+    for k in range(start, len(src)):
+        depth += {"{": 1, "}": -1}.get(src[k], 0)
+        if depth == 0:
+            return k
+    raise AssertionError("unbalanced braces")
+
+
+def _statements(body):
+    """A kernel body's statements, split at the semicolons outside braces and
+    parentheses."""
+    out, depth, start = [], 0, 0
+    for k, ch in enumerate(body):
+        depth += {"{": 1, "(": 1, "}": -1, ")": -1}.get(ch, 0)
+        if ch == ";" and depth == 0:
+            out.append(body[start:k + 1])
+            start = k + 1
+    assert not body[start:].strip(), body[start:]
+    return out
+
+
+def _host_blocks(src):
+    """The kernels' source with each block run on the host: every launch a
+    loop over its blocks (blockIdx.x), every kernel a loop over the block's
+    threads (threadIdx.x) for each phase between __syncthreads() calls, its
+    leading declarations (its shared arrays, static here, and its view of
+    the parameters) once before them.  A phase shares nothing with the next
+    but those, as on the card."""
+    src, launches = _LAUNCH.subn(
+        r"for (blockIdx.x = 0; blockIdx.x < static_cast<unsigned>(\2); ++blockIdx.x) \1", src)
+    assert launches == 2, launches
+    kernels, pos = [], 0
+    while (m := _KERNEL.search(src, pos)) is not None:
+        end = _closing_brace(src, m.end())
+        statements = _statements(src[m.end():end])
+        block = []
+        while statements and statements[0].strip().startswith(("__shared__", "const ")):
+            block.append(statements.pop(0))
+        phases = [[]]
+        for st in statements:
+            if st.strip() == "__syncthreads();":
+                phases.append([])
+            else:
+                phases[-1].append(st)
+        loops = "".join(f"\n  for (threadIdx.x = 0; threadIdx.x < {m.group(1)}; ++threadIdx.x) "
+                        f"{{{''.join(phase)}\n  }}" for phase in phases)
+        src = src[:m.end()] + "".join(block) + loops + "\n" + src[end:]
+        kernels.append((m.group(2), len(phases)))
+        pos = m.end()
+    assert kernels == [("recompute_forward_kernel", 1), ("recompute_backward_kernel", 2)], kernels
+    return src
+
+
+def _host_build(tmp_path):
     """csrc/recompute.cu built with g++ (no contraction) for the host: each
-    entry point runs its kernel over every ray in turn."""
+    entry point runs its kernel block by block (`_host_blocks`)."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("needs g++ to build the kernels' source for the host")
@@ -540,70 +744,131 @@ def _host_library(tmp_path):
     for ptx, c in _HOST_MINMAX.items():
         assert ptx in header
         header = header.replace(ptx, c)
-    src = open(os.path.join(csrc, "recompute.cu")).read()
-    src = re.sub(r"<<<.*?>>>", "", src, flags=re.S)
-    src = src.replace("blockIdx.x * THREADS + threadIdx.x", "host_ray")
-    src = src.replace("namespace {\n", "static int host_ray;\nnamespace {\n", 1)
-    for kernel in ("recompute_forward_kernel", "recompute_backward_kernel"):
-        src = src.replace(f"  {kernel}(", f"  for (host_ray = 0; host_ray < R; ++host_ray) "
-                                           f"{kernel}(")
+    src = _host_blocks(open(os.path.join(csrc, "recompute.cu")).read())
     (tmp_path / "cuda_runtime.h").write_text(_HOST_HEADER)
     (tmp_path / "candidate.cuh").write_text(header)
     (tmp_path / "recompute.cpp").write_text(src)
     lib = tmp_path / "librecompute_host.so"
     subprocess.run([gxx, "-std=c++17", "-O1", "-ffp-contract=off", "-fno-fast-math", "-shared",
-                    "-fPIC", "-Wno-unknown-pragmas", f"-I{tmp_path}", "-o", str(lib),
-                    str(tmp_path / "recompute.cpp")], check=True, capture_output=True,
-                   timeout=300)
+                    "-fPIC", "-Wno-unknown-pragmas", f"-I{tmp_path}",
+                    "-o", str(lib), str(tmp_path / "recompute.cpp")], check=True,
+                   capture_output=True, timeout=600)
     out = ctypes.CDLL(str(lib))
     out.cbtr_recompute.argtypes = cr._FORWARD_ARGTYPES
     out.cbtr_recompute_backward.argtypes = cr._BACKWARD_ARGTYPES
     return out
 
 
-def test_kernel_source_on_the_host(cases, tmp_path, monkeypatch):
-    """The kernels' arithmetic, compiled for the host with g++ and run ray by
-    ray, is the plain versions' bit for bit: every forward field and the row,
-    start and direction gradients.  The plain versions take what they take
-    on the card: the correctly rounded square root (NumPy's; torch's CPU
-    one is not always) and the card's order of a reduction's three terms."""
-    lib = _host_library(tmp_path)
+@pytest.fixture(scope="module")
+def host_library(tmp_path_factory):
+    """The kernels' source built for the host."""
+    return _host_build(tmp_path_factory.mktemp("recompute_host"))
+
+
+def _host_cases(cases):
+    """The fixtures' cases, and the robot's first 1,000 rays: 7 blocks of 128
+    and a ragged last block of 104."""
+    c = cases["robot"]
+    ragged = dict(c, **{k: c[k][:1000] for k in ("start", "direction", "any_hit", "win", "idx")})
+    return {**cases, "robot, 1,000 rays": ragged}
+
+
+@pytest.mark.parametrize("iters", [1, 4, 8])
+def test_kernel_source_on_the_host(cases, host_library, monkeypatch, iters):
+    """The kernels' arithmetic, compiled for the host with g++ and run block
+    by block, is the plain versions' bit for bit: every forward field and
+    the row, start and direction gradients, at 1, 4 (the config's) and 8
+    Newton iterations (the kernels' loops bounded at run time, their
+    iterations' inputs in a shared array sized for 8), on blocks of 128 rays
+    and on a ragged last block.  The plain versions take what they
+    take on the card: the correctly rounded square root (NumPy's; torch's
+    CPU one is not always) and the card's order of a reduction's three
+    terms."""
+    with cr.newton_iterations(iters):
+        assert cr._config()[0] == ix.CFG.root_search_iterations == iters
+        _card_rounding(monkeypatch)
+        _host_kernels_hold(cases, host_library)
+    assert cr._config()[0] == ix.CFG.root_search_iterations == 4
+
+
+def _host_kernels_hold(cases, host_library):
+    """test_kernel_source_on_the_host's checks at the current Newton count."""
+    for c in _host_cases(cases).values():
+        _hold_to_the_plain_versions(host_library, c)
+    # an id outside the table reads nothing: its fields and gradients are NaN
+    # (the first and the last ray: the last block's last row)
+    table = c["port"].packed_f32().detach().contiguous()
+    s, d = c["start"].contiguous(), c["direction"].contiguous()
+    R, P = s.shape[0], table.shape[0]
+    bad = c["idx"].clone()
+    bad[[0, -1]] = torch.tensor([-1, P])
+    args = (table, bad, s, d, c["any_hit"], c["win"])
+    out = tuple(torch.empty_like(f) for f in
+                cr.recompute_forward_reference(table, c["idx"], *args[2:]))
+    assert host_library.cbtr_recompute(*(t.data_ptr() for t in args),
+                                       *(t.data_ptr() for t in out), P, R, *cr._config(),
+                                       None) == 0
+    assert all(bool(torch.isnan(f[[0, -1]]).all()) for f in out[1:6])
+    assert bool((out[6][[0, -1]] == -1).all()) and bool((out[0][[0, -1]] == ix.WHAT_NONE).all())
+    assert bool(torch.isfinite(out[2][1:-1]).all())
+    cot = _cotangents(R, seed=7)
+    want = cr.recompute_adjoint_reference(table, c["idx"], *args[2:5], *cot)
+    grads = tuple(torch.empty_like(w) for w in want)
+    assert host_library.cbtr_recompute_backward(*(t.data_ptr() for t in args[:5]),
+                                                *(t.data_ptr() for t in cot),
+                                                *(t.data_ptr() for t in grads), P, R,
+                                                *cr._config(), None) == 0
+    assert all(bool(torch.isnan(g[[0, -1]]).all()) for g in grads)
+    assert all(torch.equal(g[1:-1], w[1:-1]) for g, w in zip(grads, want))
+
+
+def _card_rounding(monkeypatch):
+    """The plain versions with what they take on the card: the correctly
+    rounded square root (NumPy's; torch's CPU one is not always) and the
+    card's order of a reduction's three terms."""
     monkeypatch.setattr(torch, "sqrt", lambda t: torch.from_numpy(np.sqrt(t.numpy())))
     monkeypatch.setitem(cr._REDUCTION, "cpu", cr._REDUCTION["cuda"])
-    for c in cases.values():
-        table = c["port"].packed_f32().detach().contiguous()
-        s, d = c["start"].contiguous(), c["direction"].contiguous()
-        R, P = s.shape[0], table.shape[0]
-        args = (table, c["idx"], s, d, c["any_hit"], c["win"])
-        want = cr.recompute_forward_reference(*args)
-        got = fields = tuple(torch.empty_like(w) for w in want)
-        assert lib.cbtr_recompute(*(t.data_ptr() for t in args), *(t.data_ptr() for t in got),
-                                  P, R, *cr._config(), None) == 0
-        for name, g, w in zip(("what",) + FIELDS + ("patch", "what_w"), got, want):
-            assert torch.equal(g, w), name
-        cot = _cotangents(R, seed=7)
-        want = cr.recompute_adjoint_reference(*args[:5], *cot)
-        got = tuple(torch.empty_like(w) for w in want)
-        assert lib.cbtr_recompute_backward(*(t.data_ptr() for t in args[:5]),
-                                           *(t.data_ptr() for t in cot),
-                                           *(t.data_ptr() for t in got), P, R,
-                                           *cr._config(), None) == 0
-        for name, g, w in zip(("rows", "start", "direction"), got, want):
-            assert torch.equal(g, w), name
-    # an id outside the table reads nothing: its fields and gradients are NaN
-    bad = c["idx"].clone()
-    bad[:2] = torch.tensor([-1, P])
-    args = (table, bad, s, d, c["any_hit"], c["win"])
-    out = tuple(torch.empty_like(f) for f in fields)
-    assert lib.cbtr_recompute(*(t.data_ptr() for t in args), *(t.data_ptr() for t in out),
+
+
+def _hold_to_the_plain_versions(lib, c):
+    """The host-built kernels on case c: every forward field and the row,
+    start and direction gradients `torch.equal` to the plain versions'."""
+    table = c["port"].packed_f32().detach().contiguous()
+    s, d = c["start"].contiguous(), c["direction"].contiguous()
+    R, P = s.shape[0], table.shape[0]
+    args = (table, c["idx"], s, d, c["any_hit"], c["win"])
+    want = cr.recompute_forward_reference(*args)
+    got = tuple(torch.empty_like(w) for w in want)
+    assert lib.cbtr_recompute(*(t.data_ptr() for t in args), *(t.data_ptr() for t in got),
                               P, R, *cr._config(), None) == 0
-    assert all(bool(torch.isnan(f[:2]).all()) for f in out[1:6])
-    assert bool((out[6][:2] == -1).all()) and bool((out[0][:2] == ix.WHAT_NONE).all())
-    assert bool(torch.isfinite(out[2][2:]).all())
-    grads = tuple(torch.empty_like(w) for w in want)
+    for name, g, w in zip(("what",) + FIELDS + ("patch", "what_w"), got, want):
+        assert torch.equal(g, w), name
+    cot = _cotangents(R, seed=7)
+    want = cr.recompute_adjoint_reference(*args[:5], *cot)
+    got = tuple(torch.empty_like(w) for w in want)
     assert lib.cbtr_recompute_backward(*(t.data_ptr() for t in args[:5]),
                                        *(t.data_ptr() for t in cot),
-                                       *(t.data_ptr() for t in grads), P, R,
+                                       *(t.data_ptr() for t in got), P, R,
                                        *cr._config(), None) == 0
-    assert all(bool(torch.isnan(g[:2]).all()) for g in grads)
+    for name, g, w in zip(("rows", "start", "direction"), got, want):
+        assert torch.equal(g, w), name
 
+
+def test_ptxas_summary():
+    """Phase 0 of chip_smoke reads each recompute kernel's registers, stack,
+    spills and shared memory from nvcc's -Xptxas -v output."""
+    log = """ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_124recompute_forward_kernelEPKfPKx' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_124recompute_forward_kernelEPKfPKx
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 64 registers, used 1 barriers, 4608 bytes smem, 464 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_125recompute_backward_kernelEPKfPKx' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_125recompute_backward_kernelEPKfPKx
+    144 bytes stack frame, 4 bytes spill stores, 8 bytes spill loads
+ptxas info    : Used 168 registers, 464 bytes cmem[0]
+"""
+    assert cr.ptxas_summary(log) == {
+        "recompute_forward_kernel": dict(stack=0, spill_stores=0, spill_loads=0,
+                                         registers=64, shared_bytes=4608),
+        "recompute_backward_kernel": dict(stack=144, spill_stores=4, spill_loads=8,
+                                          registers=168, shared_bytes=0)}

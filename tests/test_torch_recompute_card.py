@@ -94,7 +94,7 @@ def test_train_step_on_the_kernels_is_the_twins(robot, monkeypatch):
     before = cr.COUNTED["recompute_backward"].launches
     kernels = grads()
     assert cr.COUNTED["recompute_backward"].launches == before + 2
-    monkeypatch.setattr(cr, "recompute", cr.recompute_reference)
+    monkeypatch.setattr(cr, "on_kernels", lambda table, backend="auto": False)
     plain = grads()
     assert float(kernels[1].abs().max()) > 0
     for got, want in zip(kernels, plain):
