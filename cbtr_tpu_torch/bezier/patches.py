@@ -135,13 +135,20 @@ def bernstein_weights(bary):
     return torch.stack(_bernstein(bary[..., 0], bary[..., 1], bary[..., 2]), dim=-1)
 
 
-def interpolate(control_points, bary):
-    """Evaluate the cubic surface point. cp [...,10,3], bary [...,3] -> [...,3]."""
+def interpolate(control_points, bary, acc_dtype=None):
+    """Evaluate the cubic surface point. cp [...,10,3], bary [...,3] -> [...,3].
+
+    acc_dtype (the winner search's bf16 mode, config.bf16_sweep): the f32
+    weights and the control points are rounded to it, every product and
+    sum is taken in it, and the point comes back in f32."""
     w = _bernstein(bary[..., 0], bary[..., 1], bary[..., 2])
+    if acc_dtype is not None:
+        w = [wk.to(acc_dtype) for wk in w]
+        control_points = control_points.to(acc_dtype)
     out = w[0][..., None] * control_points[..., 0, :]
     for k in range(1, 10):
         out = out + w[k][..., None] * control_points[..., k, :]
-    return out
+    return out if acc_dtype is None else out.to(bary.dtype)
 
 
 def interpolate_linear(control_points, bary):
@@ -153,26 +160,35 @@ def interpolate_linear(control_points, bary):
     return out
 
 
-def patch_normal(control_points, deriv_b, bary):
+def patch_normal(control_points, deriv_b, bary, acc_dtype=None):
     """Unit surface normal via two directional derivatives
     (reference/bezierTriangle.cpp:197-233).
 
     control_points [...,10,3], deriv_b [...,3], bary [...,3] -> [...,3].
     The three quadratic components sum only their nonzero terms, in the
-    control-point order of the reference's weight vectors.
+    control-point order of the reference's weight vectors.  acc_dtype (the
+    bf16 mode, as in `interpolate`): the six f32 weights and the control
+    points are rounded to it, the components summed in it and brought back
+    to f32.
     """
     b0, b1, b2 = bary[..., 0:1], bary[..., 1:2], bary[..., 2:3]
     b0_2, b1_2, b2_2 = b0 * b0, b1 * b1, b2 * b2
     ab = 2.0 * b0 * b1
     bc = 2.0 * b1 * b2
     ac = 2.0 * b0 * b2
+    cp = control_points
+    if acc_dtype is not None:
+        b0_2, b1_2, b2_2, ab, bc, ac = (x.to(acc_dtype) for x in (b0_2, b1_2, b2_2, ab, bc, ac))
+        cp = cp.to(acc_dtype)
 
     def c(k):
-        return control_points[..., k, :]
+        return cp[..., k, :]
 
     comp0 = b0_2 * c(0) + ab * c(3) + b1_2 * c(4) + b2_2 * c(7) + ac * c(8) + bc * c(9)
     comp1 = b1_2 * c(1) + b0_2 * c(3) + ab * c(4) + bc * c(5) + b2_2 * c(6) + ac * c(9)
     comp2 = b2_2 * c(2) + b1_2 * c(5) + bc * c(6) + ac * c(7) + b0_2 * c(8) + ab * c(9)
+    if acc_dtype is not None:
+        comp0, comp1, comp2 = (x.to(bary.dtype) for x in (comp0, comp1, comp2))
     comp_a = comp0 - comp2  # dot with DERIV_A = (1, 0, -1)
     comp_b = (deriv_b[..., 0:1] * comp0 + deriv_b[..., 1:2] * comp1
               + deriv_b[..., 2:3] * comp2)

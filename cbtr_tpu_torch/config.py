@@ -9,8 +9,9 @@ port reproduces the reference implementation's numerical behaviour:
 - thick-patch refinement      -> reference/bezierMesh.h:12-14
 - refraction cutoffs          -> reference/bezierLens.h:16-17
 
-The JAX package's `fast_newton` and `bf16_sweep` fields are TPU experiments
-(default off, measured negatives there) and have no counterpart here.
+`fast_newton` and `bf16_sweep` are the JAX package's opt-in sweep variants,
+default off as there; each sweep kernel (K1-K3) and its plain twin take
+them, the recompute never does.
 """
 from __future__ import annotations
 
@@ -52,6 +53,31 @@ class Config:
     # PyTorch runs eagerly, so the flag is read at every call; the CUDA
     # sweep kernel receives it as a runtime argument.
     clamp_secant_estimate: bool = True
+
+    # Opt-in fast-math sweep, default OFF (not a reference constant): the
+    # winner search's divisions (the plane hit, the two bracket ends, the
+    # secant, two a Newton iteration: 12 a pair) become an exponent-negation
+    # reciprocal with 2 Newton refinements (`intersect.fast_recip`, relative
+    # error under 1e-5; the JAX package's `_fast_recip` bit for bit), where
+    # the default build issues IEEE divisions (-prec-div=true).  Acceptance
+    # and distances shift by about 1e-5, so a few winners can move; the
+    # differentiable recompute stays exact.  Read at every call, as every
+    # field here (no trace); the kernels take it as a template mode, and its
+    # speed on the card is in PERF.md section 6.
+    fast_newton: bool = False
+
+    # Opt-in sub-f32 sweep, default OFF: the Bernstein interpolation's and
+    # the normal's polynomial sums of the winner search run in bfloat16
+    # (weights and control points rounded to bf16, every product and sum
+    # rounded to bf16, the result back in f32); brackets, compares and
+    # acceptance stay f32, as in the JAX package.  bf16's 8-bit mantissa is
+    # far below the acceptance epsilons, so hits and winners move (a few
+    # percent); the recompute stays exact f32.  The kernels round every
+    # operation as torch does (<cuda_bf16.h>, one value a lane), so each is
+    # bit-equal to its twin on the card; the JAX package agrees with that
+    # only where XLA rounds every bf16 operation
+    # (--xla_allow_excess_precision=false).
+    bf16_sweep: bool = False
 
     # --- thick-patch refinement (bezierMesh.h:12-14) ---
     sample_ratios_original_side: tuple = (0.25, 0.5, 0.75)

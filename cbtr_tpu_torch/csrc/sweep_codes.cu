@@ -36,6 +36,11 @@
 //     each output.  A ray-major [R, P] store would stride by P and not
 //     coalesce; the wrapper returns the transposed view.
 //
+// MODE (a template parameter; the entry point dispatches, every other value
+// is refused) is the sweep's arithmetic (candidate.cuh SweepMath: exact,
+// config.fast_newton, config.bf16_sweep, both); mode 0 is the default
+// build, op for op.
+//
 // Arithmetic: csrc/candidate.cuh (shared with K1 and K2), so a pair's code
 // and, where it is cIntersect, its distance are bit-identical to theirs and
 // to the plain twin's.  Where the pair fails the plane or slab test,
@@ -47,6 +52,7 @@
 
 namespace {
 
+template <int MODE>
 __global__ void __launch_bounds__(THREADS, 1)
 sweep_codes_kernel(const float* __restrict__ rays,
                    const float* __restrict__ patch_t,
@@ -55,6 +61,7 @@ sweep_codes_kernel(const float* __restrict__ rays,
                    int* __restrict__ lists_out, int* __restrict__ pairs_out,
                    int T, int P, int P_pad, int block_p, int use_aabb,
                    Params prm) {
+  using M = SweepMath<MODE>;
   extern __shared__ __align__(16) unsigned char smem[];
   const int B = P_pad / block_p;
   const int WB = (B + 31) / 32;
@@ -103,7 +110,7 @@ sweep_codes_kernel(const float* __restrict__ rays,
         const int p = blk * block_p + j;
         if (p >= P) break;  // padding rows keep (WHAT_NONE, 0)
         float d;
-        const int code = candidate_code(SharedRow{cur + j * N_ROWS}, r, prm, &d);
+        const int code = candidate_code<M>(SharedRow{cur + j * N_ROWS}, r, prm, &d);
         const size_t at = static_cast<size_t>(p) * R_pad + ray;
         code_out[at] = code;
         dist_out[at] = d;
@@ -119,6 +126,18 @@ sweep_codes_kernel(const float* __restrict__ rays,
 
 }  // namespace
 
+namespace {
+// the instantiation of a mode, or nullptr for a mode out of range
+using Kernel = decltype(&sweep_codes_kernel<0>);
+Kernel kernel_of(int mode) {
+  static const Kernel kernels[N_MODES] = {sweep_codes_kernel<0>, sweep_codes_kernel<1>,
+                                          sweep_codes_kernel<2>, sweep_codes_kernel<3>};
+  return mode >= 0 && mode < N_MODES ? kernels[mode] : nullptr;
+}
+}  // namespace
+
+// mode: the sweep's arithmetic (SweepMath); any other value is refused
+// (cudaErrorInvalidValue)
 extern "C" int cbtr_sweep_codes(const void* rays, const void* patch_t,
                                 const void* bounds, void* code_out,
                                 void* dist_out, void* counts_out, void* lists_out,
@@ -126,18 +145,19 @@ extern "C" int cbtr_sweep_codes(const void* rays, const void* patch_t,
                                 int block_p, int use_aabb, int iters,
                                 float ray_plane_eps, float estimation_eps,
                                 float max_ray_dist, float minimal_ray_distance,
-                                int clamp_secant, void* stream) {
+                                int clamp_secant, int mode, void* stream) {
+  const Kernel kernel = kernel_of(mode);
+  if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   if (T <= 0) return 0;
   const Params prm = {ray_plane_eps, estimation_eps, max_ray_dist,
                       minimal_ray_distance, iters, clamp_secant};
   const size_t smem = walk_smem_bytes(block_p, P_pad / block_p);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        sweep_codes_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  sweep_codes_kernel<<<T, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<T, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(rays), static_cast<const float*>(patch_t),
       static_cast<const float*>(bounds), static_cast<int*>(code_out),
       static_cast<float*>(dist_out), static_cast<int*>(counts_out),

@@ -46,12 +46,18 @@
 // build without contraction and with IEEE sqrt/division (bit-equality with
 // the twin is the check), no tensor cores, the tile and the block.
 //
+// MODE (a template parameter; the entry point dispatches, every other value
+// is refused) is the sweep's arithmetic (candidate.cuh SweepMath: exact,
+// config.fast_newton, config.bf16_sweep, both).  Mode 0 is the default
+// build, op for op.
+//
 // Arithmetic: csrc/candidate.cuh (shared with K1 and K3).
 
 #include "block_walk.cuh"
 
 namespace {
 
+template <int MODE>
 __global__ void __launch_bounds__(THREADS, 1)
 winner_kernel(const float* __restrict__ rays, const float* __restrict__ patch_t,
               const float* __restrict__ bounds, const int* __restrict__ nb,
@@ -59,6 +65,7 @@ winner_kernel(const float* __restrict__ rays, const float* __restrict__ patch_t,
               int* __restrict__ counts_out, int* __restrict__ lists_out,
               int* __restrict__ pairs_out, int T, int P, int P_pad, int block_p,
               int use_aabb, Params prm) {
+  using M = SweepMath<MODE>;
   extern __shared__ __align__(16) unsigned char smem[];
   const int B = P_pad / block_p;
   const int WB = (B + 31) / 32;
@@ -109,7 +116,7 @@ winner_kernel(const float* __restrict__ rays, const float* __restrict__ patch_t,
         const int p = blk * block_p + j;
         if (p >= P) break;  // all-zero padding rows give no candidate
         float d;
-        const int code = candidate_code(SharedRow{cur + j * N_ROWS}, r, prm, &d);
+        const int code = candidate_code<M>(SharedRow{cur + j * N_ROWS}, r, prm, &d);
         const int what_on = (code >> 3) ? (code & 7) : WHAT_NONE;
         if (what_on == WHAT_INTERSECT) {
           fold(d, p, best, best_id);
@@ -119,7 +126,7 @@ winner_kernel(const float* __restrict__ rays, const float* __restrict__ patch_t,
           const GlobalRow row_q{patch_t + static_cast<size_t>(q) * N_ROWS};
           if (patch_sphere_hit(row_q, r)) {
             float d2;
-            const int code2 = candidate_code(row_q, r, prm, &d2);
+            const int code2 = candidate_code<M>(row_q, r, prm, &d2);
             ++retries;
             if ((code2 & 7) == WHAT_INTERSECT) fold(d2, q, best, best_id);
           }
@@ -145,33 +152,49 @@ winner_kernel(const float* __restrict__ rays, const float* __restrict__ patch_t,
 
 }  // namespace
 
-// CTAs of K2 an SM holds at this table size (registers and shared memory)
-extern "C" int cbtr_winner_occupancy(int P_pad, int block_p) {
+namespace {
+// the instantiation of a mode, or nullptr for a mode out of range
+using Kernel = decltype(&winner_kernel<0>);
+Kernel kernel_of(int mode) {
+  static const Kernel kernels[N_MODES] = {winner_kernel<0>, winner_kernel<1>,
+                                          winner_kernel<2>, winner_kernel<3>};
+  return mode >= 0 && mode < N_MODES ? kernels[mode] : nullptr;
+}
+}  // namespace
+
+// CTAs of K2's instantiation `mode` an SM holds at this table size
+// (registers and shared memory)
+extern "C" int cbtr_winner_occupancy(int P_pad, int block_p, int mode) {
+  const Kernel kernel = kernel_of(mode);
+  if (kernel == nullptr) return -static_cast<int>(cudaErrorInvalidValue);
   int n = 0;
   const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &n, winner_kernel, THREADS, walk_smem_bytes(block_p, P_pad / block_p));
+      &n, kernel, THREADS, walk_smem_bytes(block_p, P_pad / block_p));
   return err == cudaSuccess ? n : -static_cast<int>(err);
 }
 
+// mode: the sweep's arithmetic (SweepMath); any other value is refused
+// (cudaErrorInvalidValue)
 extern "C" int cbtr_winner(const void* rays, const void* patch_t,
                            const void* bounds, const void* nb, void* dist_out,
                            void* idx_out, void* counts_out, void* lists_out,
                            void* pairs_out, int T, int P, int P_pad, int block_p,
                            int use_aabb, int iters, float ray_plane_eps,
                            float estimation_eps, float max_ray_dist,
-                           float minimal_ray_distance, int clamp_secant,
+                           float minimal_ray_distance, int clamp_secant, int mode,
                            void* stream) {
+  const Kernel kernel = kernel_of(mode);
+  if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   if (T <= 0) return 0;
   const Params prm = {ray_plane_eps, estimation_eps, max_ray_dist,
                       minimal_ray_distance, iters, clamp_secant};
   const size_t smem = walk_smem_bytes(block_p, P_pad / block_p);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        winner_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  winner_kernel<<<T, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<T, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(rays), static_cast<const float*>(patch_t),
       static_cast<const float*>(bounds), static_cast<const int*>(nb),
       static_cast<float*>(dist_out), static_cast<int*>(idx_out),

@@ -55,7 +55,8 @@ def sweep_codes_reference(patches: BezierPatches, start, direction,
                           use_aabb: bool = True):
     """Plain PyTorch version of K3: (code [R, P] i32, dist [R, P] f32).
 
-    Dense `intersect.sweep_codes`, then (WHAT_NONE, 0.0) on every pair
+    Dense `intersect.sweep_codes` in the mode config asks for
+    (`intersect.sweep_mode()`), then (WHAT_NONE, 0.0) on every pair
     outside `cuda_sweep.evaluated_pairs(..., block_p=32)`.  Rays go in
     chunks of whole tiles, about _REFERENCE_CHUNK_PAIRS pairs each."""
     R = start.shape[0]
@@ -66,13 +67,14 @@ def sweep_codes_reference(patches: BezierPatches, start, direction,
         *cs.tile_block_lists(patches, rays_t, BLOCK_P, use_aabb),
         patch_t.shape[0], BLOCK_P)
 
+    mode = ix.sweep_mode()
     tiles_per_chunk = max(1, _REFERENCE_CHUNK_PAIRS // (cs.TILE_R * P))
     codes, dists = [], []
     for t0 in range(0, listed.shape[0], tiles_per_chunk):
         rt = rays_t[:, t0 * cs.TILE_R:(t0 + tiles_per_chunk) * cs.TILE_R]
         keep = cs.evaluated_pairs(listed[t0:t0 + tiles_per_chunk],
                                   cs.sphere_hit_pairs(patch_t, rt), BLOCK_P)[:, :P]
-        code, dist = ix.sweep_codes(patches, rt[0:3].T, rt[3:6].T)
+        code, dist = ix.sweep_codes(patches, rt[0:3].T, rt[3:6].T, mode)
         codes.append(torch.where(keep, code, ix.WHAT_NONE))
         dists.append(torch.where(keep, dist, 0.0))
     return torch.cat(codes)[:R], torch.cat(dists)[:R]
@@ -150,7 +152,8 @@ def check_inputs(inputs: CodesInputs):
 def launch(inputs: CodesInputs, out=None, lists: bool = False,
            pairs: bool = False) -> CodesOutputs:
     """One launch of K3 on the current stream over tables from
-    `prepare_inputs`: code [P_pad, R_pad] i32 and dist [P_pad, R_pad] f32,
+    `prepare_inputs`, in the mode config asks for (`intersect.sweep_mode()`):
+    code [P_pad, R_pad] i32 and dist [P_pad, R_pad] f32,
     patch-major as the TPU kernel writes them, (WHAT_NONE, 0.0) on every
     pair it does not evaluate, and the per-tile counts of its cull.  lists /
     pairs also fill the per-tile lists and evaluated pairs (for checks; the
@@ -170,7 +173,7 @@ def launch(inputs: CodesInputs, out=None, lists: bool = False,
         pairs=torch.zeros(T, dtype=torch.int32, device=device) if pairs else None)
 
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib = cs.load_library("sweep_codes", [vp] * 8 + [ci] * 6 + [cf] * 4 + [ci, vp])
+    lib = cs.load_library("sweep_codes", [vp] * 8 + [ci] * 6 + [cf] * 4 + [ci, ci, vp])
     with torch.cuda.device(device):
         rc = lib.cbtr_sweep_codes(
             inputs.rays_t.data_ptr(), inputs.patch_t.data_ptr(),
@@ -185,6 +188,7 @@ def launch(inputs: CodesInputs, out=None, lists: bool = False,
             CFG.max_intersection_distance_from_ray,
             CFG.minimal_ray_distance,
             int(CFG.clamp_secant_estimate),
+            ix.sweep_mode().code,
             torch.cuda.current_stream(device).cuda_stream,
         )
     if rc != 0:
@@ -201,10 +205,10 @@ def sweep_codes_cuda(patches: BezierPatches, start, direction,
     `sweep_codes_pallas`.
 
     CPU tensors go to `sweep_codes_reference`; CUDA tensors launch
-    csrc/sweep_codes.cu and get the [R, P] (transposed, not contiguous)
-    view of its patch-major output.  There is no fallback between the two:
-    a build or launch failure raises.  `sweep_codes_cuda.launches` counts
-    the kernel's launches."""
+    csrc/sweep_codes.cu (both in the mode config asks for) and get the
+    [R, P] (transposed, not contiguous) view of its patch-major output.
+    There is no fallback between the two: a build or launch failure raises.
+    `sweep_codes_cuda.launches` counts the kernel's launches."""
     if not start.is_cuda:
         return sweep_codes_reference(patches, start, direction, use_aabb)
     out = launch(prepare_inputs(patches, start, direction, use_aabb))

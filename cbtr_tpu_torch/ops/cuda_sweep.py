@@ -22,6 +22,12 @@ granularity, as on the TPU:
   retry candidates the reference computes (they converge up to 66x the
   hull radius out).
 
+Two options of the JAX package's kernel, off by default: the sweep's
+arithmetic (`intersect.sweep_mode()`: config.fast_newton and
+config.bf16_sweep, read at every call by the kernel and the twin alike),
+and `half_gate` (each half of a listed block behind its own sphere gate,
+`evaluated_pairs`; block_p >= 16, as the JAX package takes it).
+
 `sweep_select` launches csrc/sweep_select.cu for CUDA tensors and calls
 `sweep_select_reference` for CPU tensors; it never falls back from one to
 the other.  The kernels are built with nvcc at first use (no import-time
@@ -36,6 +42,7 @@ import ctypes
 import dataclasses
 import glob
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -302,19 +309,22 @@ def sphere_hit_pairs(patch_t, rays_t):
 
 def sweep_select_reference(patches: BezierPatches, start, direction,
                            cull: bool = True, use_aabb: bool = True,
-                           block_p: int = BLOCK_P):
+                           block_p: int = BLOCK_P, half_gate: bool = False):
     """Plain PyTorch version of K1: (any_hit [R], win [R] i32, win_dist [R]).
 
     cull=True computes the kernel's function: per-pair `_candidates_core`
-    codes, pairs outside the listed-and-gated (tile x block) set forced to
-    WHAT_NONE, then `select_candidates`; use_aabb and block_p as in
-    `tile_block_lists`.  cull=False is `sweep_codes` followed by
-    `select_candidates` over every pair (the JAX package's XLA path).  Rays
-    are processed in chunks of _REFERENCE_CHUNK_R."""
+    codes in the mode config asks for (`intersect.sweep_mode()`), pairs
+    outside the listed-and-gated (tile x block, or x half-block with
+    half_gate) set forced to WHAT_NONE, then `select_candidates`; use_aabb
+    and block_p as in `tile_block_lists`.  cull=False is exact `sweep_codes`
+    followed by `select_candidates` over every pair (the JAX package's XLA
+    path, which no mode reaches).  Rays are processed in chunks of
+    _REFERENCE_CHUNK_R."""
     R = start.shape[0]
     P = patches.num_patches
     start = start.to(torch.float32)
     direction = direction.to(torch.float32)
+    check_half_gate(half_gate, block_p, cull)
     if not cull:
         outs = [
             ix.select_candidates(
@@ -331,13 +341,14 @@ def sweep_select_reference(patches: BezierPatches, start, direction,
     listed = listed_blocks(*tile_block_lists(patches, rays_t, block_p, use_aabb),
                            patch_t.shape[0], block_p)
 
+    mode = ix.sweep_mode()
     tiles_per_chunk = _REFERENCE_CHUNK_R // TILE_R
     outs = []
     for t0 in range(0, listed.shape[0], tiles_per_chunk):
         rt = rays_t[:, t0 * TILE_R:(t0 + tiles_per_chunk) * TILE_R]
         keep = evaluated_pairs(listed[t0:t0 + tiles_per_chunk],
-                               sphere_hit_pairs(patch_t, rt), block_p)[:, :P]
-        code, dist = ix.sweep_codes(patches, rt[0:3].T, rt[3:6].T)
+                               sphere_hit_pairs(patch_t, rt), block_p, half_gate)[:, :P]
+        code, dist = ix.sweep_codes(patches, rt[0:3].T, rt[3:6].T, mode)
         code = torch.where(keep, code, ix.WHAT_NONE)
         outs.append(ix.select_candidates(code, dist, patches.neighbours))
     return tuple(torch.cat(o)[:R] for o in zip(*outs))
@@ -355,15 +366,28 @@ def listed_blocks(counts, lists, P_pad: int, block_p: int = BLOCK_P):
     return listed
 
 
-def evaluated_pairs(listed, sphere, block_p: int = BLOCK_P):
+def check_half_gate(half_gate: bool, block_p: int, cull: bool = True):
+    """Raise unless half_gate can apply: the JAX package gates halves of
+    blocks of at least 16 patches, and only on its culled kernel."""
+    if half_gate and (block_p < 16 or block_p % 2 or not cull):
+        raise ValueError(f"half_gate takes a culled K1 at an even block_p >= 16, "
+                         f"got block_p = {block_p}, cull = {cull}")
+
+
+def evaluated_pairs(listed, sphere, block_p: int = BLOCK_P, half_gate: bool = False):
     """The (ray, patch) pairs a kernel evaluates: those of blocks listed for
     the ray's tile AND gated, i.e. some (patch, ray) pair of block x tile
-    passes the sphere test.  listed [tc, B] (B = P_pad / block_p), sphere
-    [tc*TILE_R, P_pad] (`sphere_hit_pairs`) -> [tc*TILE_R, P_pad] bool."""
+    passes the sphere test; with half_gate (K1's option) each half of a
+    listed block (block_p / 2 patches) is gated on its own.  listed [tc, B]
+    (B = P_pad / block_p), sphere [tc*TILE_R, P_pad] (`sphere_hit_pairs`) ->
+    [tc*TILE_R, P_pad] bool."""
     tc, B = listed.shape
-    gated = sphere.reshape(tc, TILE_R, B, block_p).any(dim=3).any(dim=1)    # [tc,B]
+    unit = block_p // 2 if half_gate else block_p
+    units = B * block_p // unit
+    gated = sphere.reshape(tc, TILE_R, units, unit).any(dim=3).any(dim=1)    # [tc, units]
+    listed = listed.repeat_interleave(block_p // unit, dim=1)
     return (listed & gated)[:, None, :, None].expand(
-        tc, TILE_R, B, block_p).reshape(tc * TILE_R, B * block_p)
+        tc, TILE_R, units, unit).reshape(tc * TILE_R, units * unit)
 
 
 # ---------------------------------------------------------------------------
@@ -457,19 +481,56 @@ def load_library(stem: str, argtypes) -> ctypes.CDLL:
 
 
 # cbtr_sweep_select's and cbtr_winner's parameters: 9 pointers, T, P, P_pad,
-# block_p, use_aabb, iterations, 4 tolerances, clamp_secant, the stream
-_ENTRY_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_float] * 4
-                   + [ctypes.c_int, ctypes.c_void_p])
+# block_p, use_aabb, iterations, 4 tolerances, clamp_secant, the mode
+# (`intersect.SweepMode.code`), K1's half_gate, the stream
+_ARGS = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_float] * 4 + [ctypes.c_int] * 2
+_ENTRY_ARGTYPES = {"sweep_select": _ARGS + [ctypes.c_int, ctypes.c_void_p],
+                   "winner": _ARGS + [ctypes.c_void_p]}
 
 
-def occupancy(stem: str, P_pad: int) -> int:
+def occupancy(stem: str, P_pad: int, mode: int = 0, half_gate: bool = False) -> int:
     """CTAs of K1 ("sweep_select") or K2 ("winner") one SM holds at a table
-    of P_pad rows: the device's answer for the build's registers and the
-    launch's shared memory (a negative CUDA error code on failure)."""
-    lib = load_library(stem, _ENTRY_ARGTYPES)
+    of P_pad rows, for the instantiation of `mode` (`intersect.SweepMode.code`)
+    and, on K1, half_gate: the device's answer for the build's registers and
+    the launch's shared memory (a negative CUDA error code on failure)."""
+    if half_gate and stem != "sweep_select":
+        raise ValueError("half_gate is K1's option")
+    lib = load_library(stem, _ENTRY_ARGTYPES[stem])
     entry = getattr(lib, f"cbtr_{stem}_occupancy")
-    entry.restype, entry.argtypes = ctypes.c_int, [ctypes.c_int, ctypes.c_int]
-    return entry(P_pad, BLOCK_P)
+    entry.restype = ctypes.c_int
+    if stem == "sweep_select":
+        entry.argtypes = [ctypes.c_int] * 4
+        return entry(P_pad, BLOCK_P, mode, int(half_gate))
+    entry.argtypes = [ctypes.c_int] * 3
+    return entry(P_pad, BLOCK_P, mode)
+
+
+def ptxas_summary(log: str) -> dict:
+    """{"<kernel><template arguments>": {stack, spill_stores, spill_loads,
+    registers}} for every instantiation of K1-K3 in nvcc's -Xptxas -v output
+    (`build_library`'s log); template arguments as "<mode, half_gate>"."""
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Function properties for \S*?((?:sweep_select|winner|sweep_codes)_kernel)"
+                      r"I(\w*?)EEv", line)
+        if m:
+            args = [("true" if v == "1" else "false") if t == "b" else v
+                    for t, v in re.findall(r"L([ib])(\d+)E", m.group(2) + "E")]
+            name = f"{m.group(1)}<{', '.join(args)}>"
+            out[name] = {}
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill "
+                      r"loads", line)
+        if m:
+            out[name].update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                             spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[name]["registers"] = int(m.group(1))
+            name = None
+    return out
 
 
 def _check(t: torch.Tensor, name: str, dtype, shape, device):
@@ -576,13 +637,18 @@ def check_inputs(inputs: KernelInputs, kernel: str):
 
 
 def launch_kernel(stem: str, inputs: KernelInputs, lists: bool = False,
-                  pairs: bool = False) -> KernelOutputs:
+                  pairs: bool = False, half_gate: bool = False) -> KernelOutputs:
     """One launch of K1 (stem "sweep_select") or K2 ("winner") on the current
-    stream over tables from `prepare_inputs`.  lists / pairs also fill the
-    per-tile lists and pair counts (for checks; the main path asks for
-    neither).  Every launch adds one to its wrapper's count
-    (`sweep_select.launches`, `cuda_winner.sweep_winner.launches`)."""
+    stream over tables from `prepare_inputs`, in the mode config asks for
+    (`intersect.sweep_mode()`).  lists / pairs also fill the per-tile lists
+    and pair counts (for checks; the main path asks for neither); half_gate
+    is K1's option (`evaluated_pairs`).  Every launch adds one to its
+    wrapper's count (`sweep_select.launches`,
+    `cuda_winner.sweep_winner.launches`)."""
     T, P_pad = check_inputs(inputs, "K1" if stem == "sweep_select" else "K2")
+    if half_gate and stem != "sweep_select":
+        raise ValueError("half_gate is K1's option")
+    check_half_gate(half_gate, inputs.block_p)
     device, R_pad, B = inputs.rays_t.device, T * TILE_R, P_pad // inputs.block_p
     out = KernelOutputs(
         dist=torch.empty(R_pad, dtype=torch.float32, device=device),
@@ -591,8 +657,9 @@ def launch_kernel(stem: str, inputs: KernelInputs, lists: bool = False,
         lists=torch.full((B, T), -1, dtype=torch.int32, device=device) if lists else None,
         pairs=torch.zeros((T, 2), dtype=torch.int32, device=device) if pairs else None)
 
-    lib = load_library(stem, _ENTRY_ARGTYPES)
+    lib = load_library(stem, _ENTRY_ARGTYPES[stem])
     entry = getattr(lib, f"cbtr_{stem}")
+    options = (ix.sweep_mode().code,) + ((int(half_gate),) if stem == "sweep_select" else ())
     with torch.cuda.device(device):
         rc = entry(
             inputs.rays_t.data_ptr(), inputs.patch_t.data_ptr(),
@@ -607,6 +674,7 @@ def launch_kernel(stem: str, inputs: KernelInputs, lists: bool = False,
             CFG.max_intersection_distance_from_ray,
             CFG.minimal_ray_distance,
             int(CFG.clamp_secant_estimate),
+            *options,
             torch.cuda.current_stream(device).cuda_stream,
         )
     if rc != 0:
@@ -616,31 +684,36 @@ def launch_kernel(stem: str, inputs: KernelInputs, lists: bool = False,
     return out
 
 
-def launch(inputs: KernelInputs, lists: bool = False, pairs: bool = False) -> KernelOutputs:
+def launch(inputs: KernelInputs, lists: bool = False, pairs: bool = False,
+           half_gate: bool = False) -> KernelOutputs:
     """One launch of K1 (`launch_kernel`); at most _FUSED_MAX_P patches."""
     if inputs.num_patches > _FUSED_MAX_P:
         raise ValueError(f"K1 takes at most {_FUSED_MAX_P} patches, got "
                          f"{inputs.num_patches}")
-    return launch_kernel("sweep_select", inputs, lists, pairs)
+    return launch_kernel("sweep_select", inputs, lists, pairs, half_gate)
 
 
 def sweep_select(patches: BezierPatches, start, direction, use_aabb: bool = True,
-                 tables=None):
+                 tables=None, half_gate: bool = False):
     """K1 wrapper: (any_hit [R] bool, win [R] i32, win_dist [R] f32).
 
     CPU tensors go to `sweep_select_reference` (cull=True); CUDA tensors
-    launch csrc/sweep_select.cu; use_aabb as in `tile_block_lists`; tables:
-    the patches' `cuda_tables.PatchTables` at BLOCK_P, where the caller
-    built them (`prepare_inputs` builds them otherwise; the twin checks
-    them and builds its own).  There is no fallback between the two: a
-    build or launch failure raises, and so does P > _FUSED_MAX_P on the GPU
-    (`intersect_rays` sends that range to K2, cuda_winner.sweep_winner).
+    launch csrc/sweep_select.cu; both in the mode config asks for
+    (`intersect.sweep_mode()`); use_aabb as in `tile_block_lists`;
+    half_gate as in `evaluated_pairs` (off on every path of the port);
+    tables: the patches' `cuda_tables.PatchTables` at BLOCK_P, where the
+    caller built them (`prepare_inputs` builds them otherwise; the twin
+    checks them and builds its own).  There is no fallback between the two:
+    a build or launch failure raises, and so does P > _FUSED_MAX_P on the
+    GPU (`intersect_rays` sends that range to K2, cuda_winner.sweep_winner).
     `sweep_select.launches` counts the kernel's launches."""
     if not start.is_cuda:
         if tables is not None:
             check_tables(tables, patches, BLOCK_P, False)
-        return sweep_select_reference(patches, start, direction, use_aabb=use_aabb)
-    out = launch(prepare_inputs(patches, start, direction, use_aabb, tables=tables))
+        return sweep_select_reference(patches, start, direction, use_aabb=use_aabb,
+                                      half_gate=half_gate)
+    out = launch(prepare_inputs(patches, start, direction, use_aabb, tables=tables),
+                 half_gate=half_gate)
     R = start.shape[0]
     best = out.dist[:R]
     return best < _BIG_F * 0.5, out.win[:R], best

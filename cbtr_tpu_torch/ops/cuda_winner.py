@@ -43,7 +43,8 @@ def sweep_winner_reference(patches: BezierPatches, start, direction,
                            use_aabb: bool = True):
     """Plain PyTorch version of K2: (any_hit [R], win [R] i32, win_dist [R]).
 
-    Dense `sweep_codes` over every (ray, patch) pair; direct candidates and
+    Dense `sweep_codes` over every (ray, patch) pair, in the mode config
+    asks for (`intersect.sweep_mode()`); direct candidates and
     voters only where the pair is evaluated (listed and gated, as in K1;
     use_aabb as in `cuda_sweep.tile_block_lists`); K2's retry rule; then the
     min distance, lowest id on ties.  Rays go in chunks of whole tiles,
@@ -56,6 +57,7 @@ def sweep_winner_reference(patches: BezierPatches, start, direction,
         *cs.tile_block_lists(patches, rays_t, use_aabb=use_aabb), patch_t.shape[0])
     nb = patches.neighbours.to(device=start.device, dtype=torch.int64).clamp(0, P - 1)
 
+    mode = ix.sweep_mode()
     tiles_per_chunk = max(1, _REFERENCE_CHUNK_PAIRS // (cs.TILE_R * P))
     outs = []
     for t0 in range(0, listed.shape[0], tiles_per_chunk):
@@ -63,7 +65,7 @@ def sweep_winner_reference(patches: BezierPatches, start, direction,
         sphere = cs.sphere_hit_pairs(patch_t, rt)
         keep = cs.evaluated_pairs(listed[t0:t0 + tiles_per_chunk], sphere)[:, :P]
         sphere = sphere[:, :P]
-        code, dist = ix.sweep_codes(patches, rt[0:3].T, rt[3:6].T)
+        code, dist = ix.sweep_codes(patches, rt[0:3].T, rt[3:6].T, mode)
         what_off = code & 7
         what_on = torch.where(keep & ((code >> 3) > 0), what_off, ix.WHAT_NONE)
         voted = torch.zeros(code.shape, dtype=torch.int32, device=code.device)
@@ -94,7 +96,8 @@ def prepare_inputs(patches: BezierPatches, start, direction,
 def launch(inputs: cs.KernelInputs, lists: bool = False,
            pairs: bool = False) -> cs.KernelOutputs:
     """One launch of K2 on the current stream over tables from
-    `prepare_inputs` (`cuda_sweep.launch_kernel`)."""
+    `prepare_inputs`, in the mode config asks for
+    (`cuda_sweep.launch_kernel`)."""
     return cs.launch_kernel("winner", inputs, lists, pairs)
 
 
@@ -103,7 +106,8 @@ def sweep_winner(patches: BezierPatches, start, direction, use_aabb: bool = True
     """K2 wrapper: (any_hit [R] bool, win [R] i32, win_dist [R] f32).
 
     CPU tensors go to `sweep_winner_reference`; CUDA tensors launch
-    csrc/winner.cu; use_aabb as in `cuda_sweep.tile_block_lists`; tables as
+    csrc/winner.cu; both in the mode config asks for
+    (`intersect.sweep_mode()`); use_aabb as in `cuda_sweep.tile_block_lists`; tables as
     in `prepare_inputs` (the twin checks them and builds its own).  There
     is no fallback between the two: a build or launch failure raises.
     `sweep_winner.launches` counts the kernel's launches."""

@@ -35,6 +35,7 @@ gradient hygiene, kept bit for bit).
 """
 from __future__ import annotations
 
+import contextlib
 from typing import NamedTuple
 
 import torch
@@ -70,24 +71,92 @@ class RayHit(NamedTuple):
     patch: torch.Tensor          # [...] i32 winning patch (or -1)
 
 
+class SweepMode(NamedTuple):
+    """The winner search's arithmetic: config.fast_newton (`fast_safe_div` at
+    the six divisions of `_candidates_core`) and config.bf16_sweep (the
+    Bernstein and normal sums in bfloat16), as the JAX package's Pallas sweep
+    tile takes them.  The recompute, `patch_candidates` and the unculled
+    XLA-path twin stay EXACT in every mode."""
+
+    fast_newton: bool = False
+    bf16: bool = False
+
+    @property
+    def code(self) -> int:
+        """The kernels' template mode (csrc/candidate.cuh SweepMath): bit 0
+        fast_newton, bit 1 bf16."""
+        return int(self.fast_newton) | int(self.bf16) << 1
+
+
+EXACT = SweepMode()
+# every mode, by the name chip_smoke and the tests print
+MODES = {"exact": EXACT, "fast": SweepMode(True, False), "bf16": SweepMode(False, True),
+         "both": SweepMode(True, True)}
+
+
+def sweep_mode() -> SweepMode:
+    """The mode config asks for, read at every call (the port has no trace):
+    the kernels K1-K3 and their twins take it."""
+    return SweepMode(bool(CFG.fast_newton), bool(CFG.bf16_sweep))
+
+
+@contextlib.contextmanager
+def using_mode(mode: SweepMode):
+    """config.fast_newton and config.bf16_sweep set to `mode` inside the
+    block, and restored after it whatever raised there."""
+    saved = CFG.fast_newton, CFG.bf16_sweep
+    try:
+        object.__setattr__(CFG, "fast_newton", mode.fast_newton)
+        object.__setattr__(CFG, "bf16_sweep", mode.bf16)
+        yield mode
+    finally:
+        object.__setattr__(CFG, "fast_newton", saved[0])
+        object.__setattr__(CFG, "bf16_sweep", saved[1])
+
+
+def fast_recip(x):
+    """Approximate reciprocal of f32 x, the JAX package's `_fast_recip` op for
+    op: the exponent negated by an integer subtract from 0x7EF311C3, two
+    Newton refinements r * (2 - |x| r), then the sign (relative error under
+    1e-5 over 1e-12..1e12).  csrc/candidate.cuh::fast_recip is the same."""
+    ax = x.abs()
+    r = (0x7EF311C3 - ax.view(torch.int32)).view(torch.float32)
+    r = r * (2.0 - ax * r)
+    r = r * (2.0 - ax * r)
+    return torch.where(x < 0.0, -r, r)
+
+
+def fast_safe_div(num, den, eps: float = 1e-12):
+    """`geom.safe_div` with the division of f32 operands by `fast_recip`, as
+    the JAX package's `_safe_div` under config.fast_newton."""
+    den_safe = torch.where(den.abs() < eps, torch.where(den < 0, -eps, eps), den)
+    if den_safe.dtype == torch.float32:
+        return num * fast_recip(den_safe)
+    return num / den_safe
+
+
 def _clip(x, lo, hi):
     """jnp.clip with tensor bounds: maximum, then minimum (the same values
     and the same gradient split at ties as the JAX package)."""
     return torch.minimum(torch.maximum(x, lo), hi)
 
 
-def _candidates_core(patches: BezierPatches, start, direction):
+def _candidates_core(patches: BezierPatches, start, direction, mode: SweepMode = EXACT):
     """Gate-OFF candidate evaluation of every ray against every patch row.
 
     patches leaves have leading shape [...]; start/direction broadcast with
     it.  Returns (what, distance, point, normal, bary, cos_out, in_dom) where
     in_dom is the barycentric in-[0,1] gate of LimitPlaneIntersection::cThis
     (reference/bezierTriangle.cpp:127-131); the gate-ON result is the same
-    candidate with ``valid &= in_dom``.
+    candidate with ``valid &= in_dom``.  mode: the sweep's arithmetic
+    (`SweepMode`; the fast division at the JAX sweep tile's sites,
+    pallas_sweep.py:188, :215-216, :270, :329, :349, and its bf16 sums).
 
     csrc/candidate.cuh::candidate_code evaluates the same expressions in
     the same order; keep the two in step.
     """
+    div = fast_safe_div if mode.fast_newton else geom.safe_div
+    acc = torch.bfloat16 if mode.bf16 else None
     cp = patches.control_points
     n = geom.plane_normal(patches.underlying)
     c = geom.plane_constant(patches.underlying)
@@ -96,7 +165,7 @@ def _candidates_core(patches: BezierPatches, start, direction):
 
     # ray x underlying plane (reference/bezierTriangle.cpp:124-126)
     cos_inc = geom.dot(direction, n)
-    dist0 = geom.safe_div(c - geom.dot(n, start), cos_inc)
+    dist0 = div(c - geom.dot(n, start), cos_inc)
     valid = (cos_inc.abs() >= CFG.ray_plane_intersection_epsilon) & (dist0 > 0.0)
     # self-reintersection slab gate
     valid = valid & (dist0.abs() > -h_in) & (dist0.abs() > h_out)
@@ -112,8 +181,8 @@ def _candidates_core(patches: BezierPatches, start, direction):
     cos_inc = torch.where(valid, cos_inc, 1.0)
 
     # bracket along the ray (reference/bezierTriangle.cpp:132-135)
-    d_in = geom.safe_div(h_in, cos_inc)
-    d_out = geom.safe_div(h_out, cos_inc)
+    d_in = div(h_in, cos_inc)
+    d_out = div(h_out, cos_inc)
     going = cos_inc > 0.0
     closer = dist0 + torch.where(going, d_in, d_out)
     further = dist0 + torch.where(going, d_out, d_in)
@@ -123,14 +192,14 @@ def _candidates_core(patches: BezierPatches, start, direction):
         pd = geom.dot(p, n) - c
         q = p - n * pd[..., None]
         b = geom.apply_mat3(patches.bary_inverse, q).clamp(-16.0, 16.0)
-        surf = interpolate(cp, b)
+        surf = interpolate(cp, b, acc)
         return pd.abs() - (geom.dot(surf, n) - c).abs()
 
     # secant-style estimate with midpoint fallback (cpp:137-152)
     diff_closer = surface_diff(closer)
     diff_further = surface_diff(further)
     denom = diff_closer - diff_further
-    secant = geom.safe_div(diff_closer * further - diff_further * closer, denom)
+    secant = div(diff_closer * further - diff_further * closer, denom)
     middle = torch.where(
         denom.abs() < CFG.intersection_estimation_epsilon,
         (closer + further) / 2.0,
@@ -149,18 +218,18 @@ def _candidates_core(patches: BezierPatches, start, direction):
     for _ in range(CFG.root_search_iterations):
         distance = middle
         p = start + middle[..., None] * direction
-        t = geom.safe_div(c - geom.dot(n, p), geom.dot(proj_dir, n))
+        t = div(c - geom.dot(n, p), geom.dot(proj_dir, n))
         plane_pt = p + t[..., None] * proj_dir
         bary = geom.apply_mat3(patches.bary_inverse, plane_pt).clamp(-16.0, 16.0)
-        normal = patch_normal(cp, patches.deriv_b, bary)
-        surf_pt = interpolate(cp, bary)
+        normal = patch_normal(cp, patches.deriv_b, bary, acc)
+        surf_pt = interpolate(cp, bary, acc)
         step = surf_pt - plane_pt
         new_dir = geom.safe_normalize(step)
         # keep the previous direction when the step vanished (converged lane)
         proj_dir = torch.where(
             (geom.dot(step, step) > 0.0)[..., None], new_dir, proj_dir
         )
-        middle = geom.safe_div(
+        middle = div(
             geom.dot(surf_pt - start, normal), geom.dot(direction, normal)
         ).clamp(-1e7, 1e7)
 
@@ -202,15 +271,15 @@ def patch_candidates(patches: BezierPatches, start, direction, limit_domain):
     return what, dist, pt, n, b, cos_out
 
 
-def sweep_codes(patches: BezierPatches, start, direction):
+def sweep_codes(patches: BezierPatches, start, direction, mode: SweepMode = EXACT):
     """Plain sweep: per-(ray, patch) gate-OFF code and distance
-    (counterpart of sweep_codes_xla).
+    (counterpart of sweep_codes_xla; mode as in `_candidates_core`).
 
     start/direction [R,3]; returns (code [R,P] i32, dist [R,P] f32) with
     ``code = what | (in_dom << 3)``.
     """
     what, dist, _, _, _, _, in_dom = _candidates_core(
-        patches, start[:, None, :], direction[:, None, :]
+        patches, start[:, None, :], direction[:, None, :], mode
     )
     return what | (in_dom.to(torch.int32) << 3), dist
 

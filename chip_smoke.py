@@ -47,7 +47,9 @@ Phases:
 
   0  a CUDA device (exit 1 without one), the card, the versions, the build
      of every kernel (one nvcc per source, in parallel) with each kernel's
-     registers and spills (ptxas), K1's and K2's CTAs per SM, and for each
+     registers and spills (ptxas), K1's and K2's CTAs per SM; for every
+     instantiation of K1-K3 (the sweep's four modes, K1's half_gate) its
+     registers, stack and spills and (K1, K2) its CTAs per SM; and for each
      recompute kernel its registers, stack, spills and shared memory
      (ptxas) and the blocks an SM and occupancy the device gives it; the
      native
@@ -111,6 +113,18 @@ Phases:
      then select_candidates) against K1 or K2; recompute rejects on 4096
      rays; K3's time alone (on outputs filled once), with the output fill,
      with the fill and its tables, and its twin's
+  q  the sweep's opt-in modes (config.fast_newton, config.bf16_sweep and
+     both; the flags restored after each, whatever raised): K1 at the
+     headline (262,144 x 450), K2 at the refined lens (262,144 x 1800) and
+     K3 at 65,536 x 450, each torch.equal to its twin in the same mode on
+     the first 65,536 rays (K3: codes, and distances on cIntersect pairs),
+     its hits and winners against the default's, the exact recompute's
+     rejects of its winners, its evaluated pairs and its time alone in
+     turns with the default (exact, mode, mode, exact) with the share of the
+     default's bound; K1 with half_gate in every mode torch.equal to its
+     twin, its pass-1 pairs against evaluated_pairs(half_gate=True), its
+     winners against half_gate=False and its time in turns (off, on, on,
+     off).  The kernels line carries each row under "modes"
   g  K4 against its twin (rtol 2e-6) at the short lengths fp.CHECK_LENGTHS,
      where the chains have not converged, and at both timing lengths;
      the FMA peak measured 3 times (fp.RUNS), every run and the card's ceiling
@@ -399,15 +413,16 @@ def _winner_bound(inputs, pairs):
     return _bound_ms(pairs * _flop_per_pair(), nbytes)
 
 
-def _check_lists(cs, cw, stem, patches, start, direction, use_aabb=True):
+def _check_lists(cs, cw, stem, patches, start, direction, use_aabb=True, half_gate=False):
     """The kernel's in-kernel cull against the host list builder: per-tile
     counts equal, lists[:counts[t], t] equal; its pass-1 pairs against
-    `evaluated_pairs`.  Returns (inputs, listed fraction, pass-1 pairs, retries)."""
+    `evaluated_pairs` (with K1's half_gate or without).  Returns (inputs,
+    listed fraction, pass-1 pairs, retries)."""
     import torch
 
     prepare = cw.prepare_inputs if stem == "winner" else cs.prepare_inputs
     inputs = prepare(patches, start, direction, use_aabb)
-    out = cs.launch_kernel(stem, inputs, lists=True, pairs=True)
+    out = cs.launch_kernel(stem, inputs, lists=True, pairs=True, half_gate=half_gate)
     counts, lists = cs.tile_block_lists(patches, inputs.rays_t, use_aabb=use_aabb)
     torch.cuda.synchronize()
     B, T = lists.shape
@@ -421,7 +436,8 @@ def _check_lists(cs, cw, stem, patches, start, direction, use_aabb=True):
     for t0 in range(0, T, tiles_per_chunk):
         rt = inputs.rays_t[:, t0 * cs.TILE_R:(t0 + tiles_per_chunk) * cs.TILE_R]
         pass1 += int(cs.evaluated_pairs(listed[t0:t0 + tiles_per_chunk],
-                                        cs.sphere_hit_pairs(inputs.patch_t, rt))[:, :P].sum())
+                                        cs.sphere_hit_pairs(inputs.patch_t, rt),
+                                        half_gate=half_gate)[:, :P].sum())
     got_pass1, retries = (int(x) for x in out.pairs.sum(dim=0, dtype=torch.int64))
     assert got_pass1 == pass1, (stem, P, got_pass1, pass1)
     return inputs, float(counts.sum()) / (B * T), pass1, retries
@@ -510,6 +526,153 @@ def _sides_with(cs, patches, start, direction, k1, k2):
 
     return (int(differ.sum()), int((differ & agrees(k1)).sum()),
             int((differ & agrees(k2)).sum()))
+
+
+# phase q: the sweep's opt-in modes (`intersect.MODES` names; exact is the
+# default every other phase runs) and the rays a twin runs on
+_OPT_MODES = ("fast", "bf16", "both")
+_TWIN_RAYS = 65536
+
+
+def _in_turns(fn, name: str, windows: int = 7) -> dict:
+    """fn's time (CUDA events) in the sweep mode `name` (`intersect.MODES`)
+    against the exact default, in turns: exact, name, name, exact.
+    {"exact": [ms, ms], name: [ms, ms]}."""
+    from cbtr_tpu_torch.ops import intersect as ix
+
+    times = {"exact": [], name: []}
+    for side in ("exact", name, name, "exact"):
+        with ix.using_mode(ix.MODES[side]):
+            times[side].append(_time_ms(fn, windows=windows))
+    return times
+
+
+def _modes_phase(card, scene, refined, bounds):
+    """Phase q: K1 at the headline, K2 at the refined lens and K3 at 65,536 x
+    450 in each opt-in mode (fast, bf16, both): `torch.equal` to the twin in
+    the same mode on the first _TWIN_RAYS rays, agreement with the default
+    (exact) run, recompute rejects, time in turns against the default; K1
+    with half_gate in every mode equal to its twin, its pass-1 pairs against
+    `evaluated_pairs(half_gate=True)`, its winners against half_gate=False
+    and its time in turns.  bounds: each kernel's default bound (ms), which
+    every mode's share is taken against.  Returns {kernel: {mode: row}}."""
+    import torch
+
+    from cbtr_tpu_torch.ops import cuda_codes as cc
+    from cbtr_tpu_torch.ops import cuda_sweep as cs
+    from cbtr_tpu_torch.ops import cuda_winner as cw
+    from cbtr_tpu_torch.ops import intersect as ix
+
+    rows = {"sweep_select": {}, "winner": {}, "sweep_codes": {}}
+    n = _TWIN_RAYS
+    for stem, sc, wrapper, twin, launch, prepare in (
+            ("sweep_select", scene, cs.sweep_select, cs.sweep_select_reference, cs.launch,
+             cs.prepare_inputs),
+            ("winner", refined, cw.sweep_winner, cw.sweep_winner_reference, cw.launch,
+             cw.prepare_inputs)):
+        p, s, d = sc.patches, sc.start, sc.direction
+        inputs = prepare(p, s, d)
+        default = wrapper(p, s, d)
+        for name in _OPT_MODES:
+            with ix.using_mode(ix.MODES[name]):
+                got = wrapper(p, s, d)
+                ref = twin(p, s[:n], d[:n])
+                torch.cuda.synchronize()
+                equal = all(torch.equal(a[:n], b) for a, b in zip(got, ref))
+                pairs = launch(inputs, pairs=True).pairs.sum(dim=0, dtype=torch.int64)
+            cmp = _compare(got, default)
+            _, rejects = ix.recompute_winner(p, s, d, got[0], got[1], with_check=True)
+            times = _in_turns(lambda: launch(inputs), name)
+            ms = min(times[name])
+            rows[stem][name] = dict(
+                equal_to_twin=equal, twin_rays=n, hit_agreement=cmp[0],
+                winner_agreement=cmp[1], rays_differ=cmp[4], rejects=rejects,
+                pairs=[int(x) for x in pairs], ms=times[name], default_ms=times["exact"],
+                share=bounds[stem] / ms)
+            print(f"[q] {card} | {stem} {s.shape[0]} x {p.num_patches}, mode {name}: "
+                  f"torch.equal to its twin on the first {n} rays {equal}; against the "
+                  f"default: any_hit agreement {cmp[0]:.6f}, win agreement on {cmp[3]} common "
+                  f"hits {cmp[1]:.6f}, {cmp[4]} rays differ; recompute rejects {rejects}; "
+                  f"pass-1 pairs {int(pairs[0])} + {int(pairs[1])} retries; kernel alone in "
+                  f"turns (exact, {name}, {name}, exact) {times['exact'][0]:.4f}, "
+                  f"{times[name][0]:.4f}, {times[name][1]:.4f}, {times['exact'][1]:.4f} ms; "
+                  f"share of the default's bound {bounds[stem]:.4f} ms: {bounds[stem] / ms:.3f}",
+                  flush=True)
+            assert equal, (stem, name)
+        del inputs, default, got, ref
+
+    # K1 with half_gate: every mode against its twin, the default timed
+    p, s, d = scene.patches, scene.start, scene.direction
+    inputs = cs.prepare_inputs(p, s, d)
+    plain_gate = cs.sweep_select(p, s, d)
+    for name in ("exact", *_OPT_MODES):
+        with ix.using_mode(ix.MODES[name]):
+            got = cs.sweep_select(p, s, d, half_gate=True)
+            ref = cs.sweep_select_reference(p, s[:n], d[:n], half_gate=True)
+            torch.cuda.synchronize()
+            equal = all(torch.equal(a[:n], b) for a, b in zip(got, ref))
+        print(f"[q] K1 half_gate, mode {name}: torch.equal to its twin on the first {n} rays "
+              f"{equal}", flush=True)
+        assert equal, ("half_gate", name)
+        if name == "exact":
+            half = got
+    _, _, pass1, retries = _check_lists(cs, None, "sweep_select", p, s, d, half_gate=True)
+    cmp = _compare(half, plain_gate)
+    times = {"half_gate=False": [], "half_gate=True": []}
+    for gate in (False, True, True, False):
+        times[f"half_gate={gate}"].append(
+            _time_ms(lambda: cs.launch(inputs, half_gate=gate), windows=7))
+    ms = min(times["half_gate=True"])
+    rows["sweep_select"]["half_gate"] = dict(
+        equal_to_twin=True, twin_rays=n, hit_agreement=cmp[0], winner_agreement=cmp[1],
+        rays_differ=cmp[4], pairs=[pass1, retries], ms=times["half_gate=True"],
+        default_ms=times["half_gate=False"], share=bounds["sweep_select"] / ms)
+    print(f"[q] {card} | K1 half_gate {s.shape[0]} x {p.num_patches}: pass-1 pairs {pass1} "
+          f"(= evaluated_pairs(half_gate=True)) + {retries} retries; against half_gate=False: "
+          f"any_hit agreement {cmp[0]:.6f}, win agreement {cmp[1]:.6f}, {cmp[4]} rays differ; "
+          f"kernel alone in turns (off, on, on, off) {times['half_gate=False'][0]:.4f}, "
+          f"{times['half_gate=True'][0]:.4f}, {times['half_gate=True'][1]:.4f}, "
+          f"{times['half_gate=False'][1]:.4f} ms", flush=True)
+    del inputs, plain_gate, half, got, ref
+
+    # K3 at the bench's breakdown shape
+    s, d = s[:n], d[:n]
+    k3_in = cc.prepare_inputs(p, s, d)
+    k3_out = cc.filled_outputs(k3_in)
+    code0, dist0 = cc.sweep_codes_cuda(p, s, d)
+    for name in _OPT_MODES:
+        with ix.using_mode(ix.MODES[name]):
+            code, dist = cc.sweep_codes_cuda(p, s, d)
+            code_r, dist_r = cc.sweep_codes_reference(p, s, d)
+            torch.cuda.synchronize()
+            inter = (code_r & 7) == ix.WHAT_INTERSECT
+            equal = torch.equal(code, code_r) and torch.equal(dist[inter], dist_r[inter])
+            executed = int(cc.launch(k3_in, pairs=True).pairs.sum(dtype=torch.int64))
+        codes_differ = int((code != code0).sum())
+        staged = ix.select_candidates(code, dist, p.neighbours)
+        staged0 = ix.select_candidates(code0, dist0, p.neighbours)
+        cmp = _compare(staged, staged0)
+        _, rejects = ix.recompute_winner(p, s, d, staged[0], staged[1], with_check=True)
+        times = _in_turns(lambda: cc.launch(k3_in, k3_out), name)
+        ms = min(times[name])
+        rows["sweep_codes"][name] = dict(
+            equal_to_twin=equal, twin_rays=n, codes_differ=codes_differ,
+            hit_agreement=cmp[0], winner_agreement=cmp[1], rays_differ=cmp[4],
+            rejects=rejects, pairs=executed,
+            ms=times[name], default_ms=times["exact"], share=bounds["sweep_codes"] / ms)
+        print(f"[q] {card} | sweep_codes {n} x {p.num_patches}, mode {name}: codes and "
+              f"cIntersect distances torch.equal to its twin {equal}; pairs with another code "
+              f"than the default's {codes_differ} of {code.numel()}; staged winners against "
+              f"the default's: any_hit agreement {cmp[0]:.6f}, win agreement {cmp[1]:.6f}; "
+              f"recompute rejects {rejects}; evaluated pairs {executed}; kernel alone in turns "
+              f"{times['exact'][0]:.4f}, {times[name][0]:.4f}, {times[name][1]:.4f}, "
+              f"{times['exact'][1]:.4f} ms; share of the default's bound "
+              f"{bounds['sweep_codes']:.4f} ms: {bounds['sweep_codes'] / ms:.3f}", flush=True)
+        assert equal, ("sweep_codes", name)
+        del code, dist, code_r, dist_r, inter, staged, staged0
+    del k3_in, k3_out, code0, dist0
+    torch.cuda.empty_cache()
+    return rows
 
 
 def _render(scene, backend="auto"):
@@ -1162,7 +1325,8 @@ def _scale_phase(dev, card, kernels):
         render
     print(f"[p] {card} | render4k: {n} rays -> 1024^2 image, chunk {render['chunk']}: "
           f"{render['wall_s']} s ({render['rays_per_s']} rays/s), peak "
-          f"{render['peak_memory_gib']:.3f} GiB; two calls equal: {render['deterministic']} "
+          f"{render['peak_memory_gib']:.3f} GiB; checksum {render['image_checksum']}; two "
+          f"calls equal: {render['deterministic']} "
           f"(max |d| / max {render['image_max_abs_diff_between_calls_rel']:.3e}); row-major "
           f"{render['row_major']['wall_s']} s, max |d| / max "
           f"{render['row_major']['image_max_abs_diff_rel']:.3e}; launches a render "
@@ -1176,7 +1340,8 @@ def _scale_phase(dev, card, kernels):
     print(f"[p] {card} | train4k: one fwd+bwd SGD step on {n} rays, 128^2 target, chunk "
           f"{train['chunk']}: {train['wall_s']} s ({train['rays_per_s_fwd_bwd']} rays/s "
           f"fwd+bwd), peak {train['peak_memory_gib']:.3f} GiB; loss {train['loss']!r}, "
-          f"|grad cp| {train['grad_cp_norm']:.6e}, grad n {train['grad_n_refr']:.6e}; two "
+          f"|grad cp| {train['grad_cp_norm']:.6e}, grad n {train['grad_n_refr']:.6e}; "
+          f"checksum {train['loss_grads_checksum']}; two "
           f"steps equal: {train['deterministic']} (max |d grad cp| / max "
           f"{train['grad_cp_max_abs_diff_between_calls_rel']:.3e}); launches a step "
           f"{train['launches_per_step']}, in the script {path_launches['train4k']}",
@@ -1441,6 +1606,24 @@ def _segment_phase(dev, card, scene, win):
     del shapes, splat_ids, splat_vals
     torch.cuda.empty_cache()
     return rows
+
+
+def _sweep_build(cs, build_log: str) -> dict:
+    """Phase 0's line for every instantiation of K1-K3 (the mode, and K1's
+    half_gate): ptxas's registers, stack and spills (`cuda_sweep.ptxas_summary`
+    of the build's output) and, for K1 and K2, the CTAs an SM holds at the
+    headline's and the refined lens's tables.  Returns {instantiation: numbers}."""
+    out = cs.ptxas_summary(build_log)
+    for mode in range(4):
+        for half in (False, True):
+            name = f"sweep_select_kernel<{mode}, {'true' if half else 'false'}>"
+            out.setdefault(name, {})["ctas_per_sm"] = cs.occupancy(
+                "sweep_select", 512, mode, half)
+        out.setdefault(f"winner_kernel<{mode}>", {})["ctas_per_sm"] = cs.occupancy(
+            "winner", 1920, mode)
+    for name, row in out.items():
+        print(f"[0] {name}: {row}", flush=True)
+    return out
 
 
 def _recompute_build(build_log: str) -> dict:
@@ -1792,6 +1975,7 @@ def main(argv=None) -> int:
     print(f"[0] CTAs per SM: K1 {cs.occupancy('sweep_select', 512)} (P_pad 512), K2 "
           f"{cs.occupancy('winner', 1920)} (P_pad 1920), "
           f"{cs.occupancy('winner', 16256)} (P_pad 16,256)", flush=True)
+    sweep_build = _sweep_build(cs, build_log)
     rec_build = _recompute_build(build_log)
     # the native preprocessing runtime, before any scene: every lens below
     # starts from the mesh the JAX package's default preprocess gives
@@ -2255,6 +2439,13 @@ def main(argv=None) -> int:
               f"twin {k3_rows[name]['plain']:.3f} ms; evaluated pairs {executed}, bound "
               f"{k3_rows[name]['bound'][0]:.4f} ms ({k3_rows[name]['bound'][1]})", flush=True)
 
+    # ---- q: the sweep's opt-in modes and K1's half gate ---------------------------
+    t = time.perf_counter()
+    mode_rows = _modes_phase(card, scene, refined, {
+        "sweep_select": k1_bound[0], "winner": k2_bound[0],
+        "sweep_codes": k3_rows["robot"]["bound"][0]})
+    print(f"[q] took {time.perf_counter() - t:.1f} s", flush=True)
+
     # ---- g: K4 against its twin; the FMA peak ------------------------------------
     a = 0.5 + 0.2 * torch.rand(fp.chains_elements(dev), device=dev,
                                generator=torch.Generator(device=dev).manual_seed(0))
@@ -2653,6 +2844,8 @@ def main(argv=None) -> int:
             "kernel_only_ms": k1_launch_ms,
             "second_pass_ms": k1_2_ms,
             "second_pass_bound_ms": k1_bound_2[0],
+            "modes": mode_rows["sweep_select"],
+            "build": {k: v for k, v in sweep_build.items() if k.startswith("sweep_select")},
         },
         {
             "name": "winner",
@@ -2673,6 +2866,8 @@ def main(argv=None) -> int:
             "bound_by": k2_bound[1],
             "library_ms": None,
             "kernel_only_ms": k2_launch_ms,
+            "modes": mode_rows["winner"],
+            "build": {k: v for k, v in sweep_build.items() if k.startswith("winner")},
         },
         {
             "name": "sweep_codes",
@@ -2698,6 +2893,8 @@ def main(argv=None) -> int:
             "library_ms": None,
             "kernel_only_ms": k3_rows["robot"]["alone"],
             "kernel_and_fill_ms": k3_rows["robot"]["fill"],
+            "modes": mode_rows["sweep_codes"],
+            "build": {k: v for k, v in sweep_build.items() if k.startswith("sweep_codes")},
         },
         {
             "name": "tables",
