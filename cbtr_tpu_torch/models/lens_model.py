@@ -20,6 +20,7 @@ from torch import nn
 
 from ..bezier.patches import BezierPatches
 from ..render.render import render_lens_image
+from ..utils.profiling import span
 
 _TABLES = ("neighbours", "underlying", "dividers", "bary_inverse", "heights",
            "deriv_b")
@@ -84,15 +85,20 @@ def make_train_step(screen_plane, target, resolution: int = 128,
     """SGD step: (params, start, direction) -> (params, loss).
 
     Updates the parameters in place (p <- p - lr * grad) and returns the
-    same module with the detached loss."""
+    same module with the detached loss.  The step is the span `cbtr.step`,
+    its loss, backward and update `cbtr.step.forward`, `.backward` and
+    `.update` (`utils.profiling`)."""
 
+    @span("cbtr.step")
     def step(params: LensParams, start, direction):
         params.zero_grad(set_to_none=True)
-        loss = lens_loss(params, start, direction, screen_plane, target,
-                         resolution=resolution, extent=extent,
-                         chunk_size=chunk_size, backend=backend)
-        loss.backward()
-        with torch.no_grad():
+        with span("cbtr.step.forward"):
+            loss = lens_loss(params, start, direction, screen_plane, target,
+                             resolution=resolution, extent=extent,
+                             chunk_size=chunk_size, backend=backend)
+        with span("cbtr.step.backward"):
+            loss.backward()
+        with span("cbtr.step.update"), torch.no_grad():
             for p in (params.control_points, params.refractive_index):
                 p -= learning_rate * p.grad
         return params, loss.detach()
@@ -111,15 +117,20 @@ def make_opt_train_step(screen_plane, target, resolution: int = 128,
     is a `torch.optim.Optimizer` over [params.control_points,
     params.refractive_index], e.g. `torch.optim.Adam(..., lr=lr)`, which
     has optax.adam's defaults (b1 0.9, b2 0.999, eps 1e-8).  The loss is
-    `lens_loss`, as in `make_train_step`; the parameters move in place."""
+    `lens_loss`, as in `make_train_step`; the parameters move in place.
+    Its spans are `make_train_step`'s, the update `opt.step()`."""
 
+    @span("cbtr.step")
     def step(params: LensParams, opt, start, direction):
         opt.zero_grad(set_to_none=True)
-        loss = lens_loss(params, start, direction, screen_plane, target,
-                         resolution=resolution, extent=extent,
-                         chunk_size=chunk_size)
-        loss.backward()
-        opt.step()
+        with span("cbtr.step.forward"):
+            loss = lens_loss(params, start, direction, screen_plane, target,
+                             resolution=resolution, extent=extent,
+                             chunk_size=chunk_size)
+        with span("cbtr.step.backward"):
+            loss.backward()
+        with span("cbtr.step.update"):
+            opt.step()
         return params, opt, loss.detach()
 
     return step

@@ -60,6 +60,7 @@ from torch.autograd.function import once_differentiable
 
 from ..bezier.patches import BezierPatches
 from ..config import DEFAULT as CFG
+from ..utils.profiling import span
 from . import cuda_segment
 
 # columns of the packed table (BezierPatches.packed_f32): the control net
@@ -777,7 +778,7 @@ def launch_forward(table, idx, start, direction, any_hit, win):
            torch.empty((R, 3), **f32), torch.empty((R, 3), **f32), torch.empty(R, **f32),
            torch.empty(R, **i32), torch.empty(R, **i32))
     lib = _library()
-    with torch.cuda.device(device):
+    with torch.cuda.device(device), span("cbtr.launch.recompute_forward"):
         rc = lib.cbtr_recompute(
             table.data_ptr(), idx.data_ptr(), start.data_ptr(), direction.data_ptr(),
             any_hit.data_ptr(), win.data_ptr(), *(t.data_ptr() for t in out),
@@ -801,7 +802,7 @@ def launch_backward(table, idx, start, direction, any_hit, g_distance, g_point, 
     g_start = torch.empty((R, 3), dtype=torch.float32, device=device)
     g_dir = torch.empty((R, 3), dtype=torch.float32, device=device)
     lib = _library()
-    with torch.cuda.device(device):
+    with torch.cuda.device(device), span("cbtr.launch.recompute_backward"):
         rc = lib.cbtr_recompute_backward(
             table.data_ptr(), idx.data_ptr(), start.data_ptr(), direction.data_ptr(),
             any_hit.data_ptr(), *(t.data_ptr() for _, t in cot), rows.data_ptr(),
@@ -841,6 +842,7 @@ class _Recompute(torch.autograd.Function):
 
     @staticmethod
     @once_differentiable
+    @span("cbtr.backward.recompute")
     def backward(ctx, _what, g_dist, g_point, g_normal, g_bary, g_cos, _patch, _what_w):
         table, start, direction, any_hit, win = ctx.saved_tensors
         idx = winner_ids(win)

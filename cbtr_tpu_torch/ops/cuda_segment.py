@@ -44,6 +44,8 @@ import functools
 import torch
 from torch.autograd.function import once_differentiable
 
+from ..utils.profiling import span
+
 # children a node of the tree folds (csrc/segment_sum.cu GROUP)
 GROUP = 256
 
@@ -291,9 +293,10 @@ def _enqueue(lib, ids, vals, num_segments: int, stream):
         ids = ids.to(torch.int64)
     ids, vals = ids.contiguous(), vals.contiguous()
     workspace = torch.empty(plan.nbytes, dtype=torch.uint8, device=vals.device)
-    rc = lib.cbtr_segment_sum(ids.data_ptr(), ids.element_size(), vals.data_ptr(),
-                              out.data_ptr(), workspace.data_ptr(), N, S, C,
-                              plan.as_c_array(), stream)
+    with span("cbtr.launch.segment_sum"):
+        rc = lib.cbtr_segment_sum(ids.data_ptr(), ids.element_size(), vals.data_ptr(),
+                                  out.data_ptr(), workspace.data_ptr(), N, S, C,
+                                  plan.as_c_array(), stream)
     if rc != 0:
         raise RuntimeError(f"segment-sum kernel launch failed: "
                            f"{lib.cbtr_cuda_error_string(rc).decode()} ({rc})")
@@ -341,6 +344,7 @@ class _SegmentSum(torch.autograd.Function):
 
     @staticmethod
     @once_differentiable
+    @span("cbtr.backward.segment_sum")
     def backward(ctx, grad):
         (ids,) = ctx.saved_tensors
         keep = (ids >= 0) & (ids < ctx.num_segments)
@@ -360,6 +364,7 @@ class _GatherRows(torch.autograd.Function):
 
     @staticmethod
     @once_differentiable
+    @span("cbtr.backward.gather_rows")
     def backward(ctx, grad):
         if not ctx.needs_input_grad[0]:
             return None, None

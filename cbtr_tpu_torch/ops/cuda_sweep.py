@@ -51,6 +51,7 @@ import torch
 
 from ..bezier.patches import BezierPatches
 from ..config import DEFAULT as CFG
+from ..utils import profiling
 from . import intersect as ix
 
 # feature-column layout of the row-major [P, 64] patch table
@@ -348,6 +349,7 @@ def sweep_select_reference(patches: BezierPatches, start, direction,
         rt = rays_t[:, t0 * TILE_R:(t0 + tiles_per_chunk) * TILE_R]
         keep = evaluated_pairs(listed[t0:t0 + tiles_per_chunk],
                                sphere_hit_pairs(patch_t, rt), block_p, half_gate)[:, :P]
+        count_twin_pairs("sweep_select", keep)
         code, dist = ix.sweep_codes(patches, rt[0:3].T, rt[3:6].T, mode)
         code = torch.where(keep, code, ix.WHAT_NONE)
         outs.append(ix.select_candidates(code, dist, patches.neighbours))
@@ -644,12 +646,17 @@ def launch_kernel(stem: str, inputs: KernelInputs, lists: bool = False,
     and pair counts (for checks; the main path asks for neither); half_gate
     is K1's option (`evaluated_pairs`).  Every launch adds one to its
     wrapper's count (`sweep_select.launches`,
-    `cuda_winner.sweep_winner.launches`)."""
+    `cuda_winner.sweep_winner.launches`); while `profiling.counting()` is
+    on it fills the pair counts whether asked or not and adds them to the
+    wrapper's accumulator on the device (`pair_counts`).  The C call is
+    the span `cbtr.launch.k1` (`cbtr.launch.k2`)."""
     T, P_pad = check_inputs(inputs, "K1" if stem == "sweep_select" else "K2")
     if half_gate and stem != "sweep_select":
         raise ValueError("half_gate is K1's option")
     check_half_gate(half_gate, inputs.block_p)
     device, R_pad, B = inputs.rays_t.device, T * TILE_R, P_pad // inputs.block_p
+    counted = profiling.counting_enabled()
+    pairs = pairs or counted
     out = KernelOutputs(
         dist=torch.empty(R_pad, dtype=torch.float32, device=device),
         win=torch.empty(R_pad, dtype=torch.int32, device=device),
@@ -660,7 +667,7 @@ def launch_kernel(stem: str, inputs: KernelInputs, lists: bool = False,
     lib = load_library(stem, _ENTRY_ARGTYPES[stem])
     entry = getattr(lib, f"cbtr_{stem}")
     options = (ix.sweep_mode().code,) + ((int(half_gate),) if stem == "sweep_select" else ())
-    with torch.cuda.device(device):
+    with torch.cuda.device(device), profiling.span(_LAUNCH_SPANS[stem]):
         rc = entry(
             inputs.rays_t.data_ptr(), inputs.patch_t.data_ptr(),
             inputs.bounds.data_ptr(), inputs.nb.data_ptr(),
@@ -681,6 +688,8 @@ def launch_kernel(stem: str, inputs: KernelInputs, lists: bool = False,
         raise RuntimeError(f"{stem} kernel launch failed: "
                            f"{lib.cbtr_cuda_error_string(rc).decode()} ({rc})")
     _counted[stem].launches += 1
+    if counted:
+        _add_pairs(stem, out.pairs.sum(dim=0, dtype=torch.int64))
     return out
 
 
@@ -720,6 +729,40 @@ def sweep_select(patches: BezierPatches, start, direction, use_aabb: bool = True
 
 
 sweep_select.launches = 0
-# the wrapper whose `launches` counts each kernel's launches, by source stem
-# (cuda_winner adds K2's)
+sweep_select.pairs = None
+# the wrapper whose `launches` counts each kernel's launches and whose
+# `pairs` accumulates its pair counts, by source stem (cuda_winner adds K2's)
 _counted = {"sweep_select": sweep_select}
+_LAUNCH_SPANS = {"sweep_select": "cbtr.launch.k1", "winner": "cbtr.launch.k2"}
+
+
+def _add_pairs(stem: str, pairs) -> None:
+    """Add int64 [2] (pass-1 pairs, retries) to the wrapper's accumulator,
+    on its device, reading nothing back."""
+    wrapper = _counted[stem]
+    if wrapper.pairs is None:
+        wrapper.pairs = pairs.clone()
+    else:
+        wrapper.pairs.add_(pairs)
+
+
+def count_twin_pairs(stem: str, keep) -> None:
+    """While `profiling.counting()` is on, add a plain twin's evaluated
+    pairs (`keep`, its `evaluated_pairs` mask) as pass-1 pairs of `stem`;
+    the twins count no retries."""
+    if profiling.counting_enabled():
+        total = keep.sum(dtype=torch.int64)
+        _add_pairs(stem, torch.stack((total, torch.zeros_like(total))))
+
+
+def pair_counts() -> dict:
+    """{stem: (pass-1 pairs, retries)} added while `profiling.counting()`
+    was on since the last `reset_pair_counts`, each read once; (0, 0) for
+    a kernel that counted none."""
+    return {stem: (0, 0) if w.pairs is None else tuple(int(x) for x in w.pairs.tolist())
+            for stem, w in _counted.items()}
+
+
+def reset_pair_counts() -> None:
+    for wrapper in _counted.values():
+        wrapper.pairs = None

@@ -36,6 +36,7 @@ import functools
 import torch
 
 from ..bezier.patches import BezierPatches
+from ..utils.profiling import span
 from . import cuda_sweep as cs
 
 # the float leaves the kernel reads, in its argument order
@@ -187,7 +188,7 @@ def launch(patches: BezierPatches, block_p: int = cs.BLOCK_P,
     leaves, neighbours = _table_leaves(patches)
     workspace = torch.empty(plan.nbytes, dtype=torch.uint8, device=device)
     lib = _library()
-    with torch.cuda.device(device):
+    with torch.cuda.device(device), span("cbtr.launch.tables"):
         rc = lib.cbtr_tables(
             *(leaf.data_ptr() for leaf in leaves), neighbours.data_ptr(),
             workspace.data_ptr(), workspace.numel(), plan.as_c_array(),
@@ -237,7 +238,7 @@ def launch_pack_rays(start, direction) -> torch.Tensor:
     R_pad = R + (-R) % cs.TILE_R
     rays_t = torch.empty((8, R_pad), dtype=torch.float32, device=device)
     lib = _library()
-    with torch.cuda.device(device):
+    with torch.cuda.device(device), span("cbtr.launch.pack_rays"):
         rc = lib.cbtr_pack_rays(start.data_ptr(), direction.data_ptr(), rays_t.data_ptr(), R, R_pad,
                    torch.cuda.current_stream(device).cuda_stream)
     if rc != 0:

@@ -64,6 +64,7 @@ def sweep_winner_reference(patches: BezierPatches, start, direction,
         rt = rays_t[:, t0 * cs.TILE_R:(t0 + tiles_per_chunk) * cs.TILE_R]
         sphere = cs.sphere_hit_pairs(patch_t, rt)
         keep = cs.evaluated_pairs(listed[t0:t0 + tiles_per_chunk], sphere)[:, :P]
+        cs.count_twin_pairs("winner", keep)
         sphere = sphere[:, :P]
         code, dist = ix.sweep_codes(patches, rt[0:3].T, rt[3:6].T, mode)
         what_off = code & 7
@@ -122,4 +123,5 @@ def sweep_winner(patches: BezierPatches, start, direction, use_aabb: bool = True
 
 
 sweep_winner.launches = 0
+sweep_winner.pairs = None
 cs._counted["winner"] = sweep_winner

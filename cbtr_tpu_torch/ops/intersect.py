@@ -44,6 +44,7 @@ from torch.utils.checkpoint import checkpoint
 from .. import geom
 from ..config import DEFAULT as CFG
 from ..bezier.patches import BezierPatches, interpolate, patch_normal
+from ..utils.profiling import span
 from . import cuda_recompute
 
 # BezierIntersection::What (reference/bezierTriangle.h:8-14)
@@ -346,6 +347,7 @@ def select_candidates(code, dist, neighbours):
     return best_key < _BIG, win.to(torch.int32), best_key
 
 
+@span("cbtr.recompute")
 def recompute_winner(patches: BezierPatches, start, direction, any_hit, win,
                      with_check: bool = False, backend: str = "auto", values=None):
     """Differentiable re-evaluation of each ray's winning patch.
@@ -455,6 +457,7 @@ def _winner_route(num_patches: int):
     return cuda_winner.sweep_winner, cuda_winner.sweep_winner_reference, True
 
 
+@span("cbtr.tables")
 def winner_tables(patches: BezierPatches, backend: str = "auto"):
     """The winner kernel's tables for these patches (`cuda_tables.PatchTables`
     at cuda_sweep.BLOCK_P, the neighbours clamped for K2, `_winner_route`):
@@ -471,6 +474,7 @@ def winner_tables(patches: BezierPatches, backend: str = "auto"):
                                         clamp=_winner_route(patches.num_patches)[2])
 
 
+@span("cbtr.winner_search")
 def _winner_chunk(patches: BezierPatches, start, direction, backend: str, tables=None):
     """Stages 1+2 (sweep + select) for a chunk of rays: the gradient-free
     winner search.  Returns (any_hit [R] bool, win [R] i32).

@@ -15,12 +15,15 @@ import torch
 from .. import geom
 from ..config import DEFAULT as CFG
 from ..ops.intersect import WHAT_INTERSECT, intersect_rays, winner_tables
+from ..utils.profiling import backward_span, span
 
 REFRACT_NONE = 0
 REFRACT_INSIDE = 1
 REFRACT_OUTSIDE = 2
 
 
+@span("cbtr.refract")
+@backward_span("cbtr.backward.refract")
 def refract_rays(patches, refractive_index, start, direction, expected,
                  chunk_size: int = 0, backend: str = "auto", intersect_fn=None,
                  tables=None):

@@ -22,8 +22,11 @@ from .. import geom
 from ..ops.cuda_segment import segment_sum
 from ..ops.intersect import WHAT_INTERSECT, intersect_rays
 from ..optics.lens import trace_through_lens
+from ..utils.profiling import backward_span, span
 
 
+@span("cbtr.screen_hits")
+@backward_span("cbtr.backward.screen_hits")
 def screen_hits(start, direction, screen_plane):
     """Intersect rays with the screen plane; returns (hit2d [N,2], valid).
 
@@ -63,6 +66,8 @@ def _splat_axis_weights(coord, res: int):
             + torch.where(iota == x0i + 1, frac[:, None], 0.0))
 
 
+@span("cbtr.splat")
+@backward_span("cbtr.backward.splat")
 def splat_bilinear(points2d, weights, extent, resolution: int):
     """Accumulate points into a [res, res] image with bilinear footprints.
 
@@ -107,6 +112,7 @@ def splat_bilinear(points2d, weights, extent, resolution: int):
     return segment_sum(pixels, contributions, res * res).reshape(res, res)
 
 
+@span("cbtr.render")
 def render_lens_image(patches, refractive_index, start, direction, screen_plane,
                       extent: float = 4.0, resolution: int = 128,
                       chunk_size: int = 0, weights=None, backend: str = "auto",

@@ -124,7 +124,9 @@ Phases:
      default's bound; K1 with half_gate in every mode torch.equal to its
      twin, its pass-1 pairs against evaluated_pairs(half_gate=True), its
      winners against half_gate=False and its time in turns (off, on, on,
-     off).  The kernels line carries each row under "modes"
+     off); K1's and K2's pair counters under `profiling.counting()` equal
+     to the launch's pairs on the same inputs (row "counter").  The
+     kernels line carries each row under "modes"
   g  K4 against its twin (rtol 2e-6) at the short lengths fp.CHECK_LENGTHS,
      where the chains have not converged, and at both timing lengths;
      the FMA peak measured 3 times (fp.RUNS), every run and the card's ceiling
@@ -551,7 +553,9 @@ def _modes_phase(card, scene, refined, bounds):
     """Phase q: K1 at the headline, K2 at the refined lens and K3 at 65,536 x
     450 in each opt-in mode (fast, bf16, both): `torch.equal` to the twin in
     the same mode on the first _TWIN_RAYS rays, agreement with the default
-    (exact) run, recompute rejects, time in turns against the default; K1
+    (exact) run, recompute rejects, time in turns against the default; the
+    wrapper's pair counter under `profiling.counting()` equal to the
+    launch's `pairs` on the same inputs (K1 and K2, exact); K1
     with half_gate in every mode equal to its twin, its pass-1 pairs against
     `evaluated_pairs(half_gate=True)`, its winners against half_gate=False
     and its time in turns.  bounds: each kernel's default bound (ms), which
@@ -562,6 +566,7 @@ def _modes_phase(card, scene, refined, bounds):
     from cbtr_tpu_torch.ops import cuda_sweep as cs
     from cbtr_tpu_torch.ops import cuda_winner as cw
     from cbtr_tpu_torch.ops import intersect as ix
+    from cbtr_tpu_torch.utils import profiling
 
     rows = {"sweep_select": {}, "winner": {}, "sweep_codes": {}}
     n = _TWIN_RAYS
@@ -573,6 +578,20 @@ def _modes_phase(card, scene, refined, bounds):
         p, s, d = sc.patches, sc.start, sc.direction
         inputs = prepare(p, s, d)
         default = wrapper(p, s, d)
+        # the wrapper's own counter (profiling.counting) on the same inputs
+        cs.reset_pair_counts()
+        with profiling.counting():
+            counted_out = wrapper(p, s, d)
+        counted = cs.pair_counts()[stem]
+        cs.reset_pair_counts()
+        asked = tuple(int(x) for x in launch(inputs, pairs=True).pairs.sum(dim=0,
+                                                                            dtype=torch.int64))
+        same = all(torch.equal(a, b) for a, b in zip(counted_out, default))
+        rows[stem]["counter"] = dict(counted=list(counted), pairs=list(asked), same_winners=same)
+        print(f"[q] {card} | {stem} {s.shape[0]} x {p.num_patches}: its counter under "
+              f"profiling.counting() {counted} (pass-1 pairs, retries), the launch's pairs "
+              f"{asked}; winners equal to the uncounted call's {same}", flush=True)
+        assert counted == asked and counted[0] > 0 and same, (stem, counted, asked, same)
         for name in _OPT_MODES:
             with ix.using_mode(ix.MODES[name]):
                 got = wrapper(p, s, d)

@@ -73,7 +73,7 @@ from cbtr_tpu_torch.render import (OrthoGrid, DeviceEmitter, sample_hemisphere,
 from cbtr_tpu_torch.models import (fit_lens, fit_emitter_lens, emitter_rays,
     make_opt_train_step, scene_ortho_grid)
 from cbtr_tpu_torch.utils import (save_params, load_params, save_patches,
-    load_patches, RateMeter, trace)
+    load_patches, counting, span, spans_on, timing, trace)
 from cbtr_tpu_torch.utils.checkpoint import latest_checkpoint
 from cbtr_tpu_torch.utils.prng import prng_key, fold_in, split, uniform
 assert shutil.which("nvcc") is None

@@ -1,10 +1,11 @@
-"""Checkpoints, the throughput meter and the trace against the JAX package.
+"""Checkpoints against the JAX package, and the trace.
 
 Counterpart of tests/test_utils.py.  Both packages write the same `.npz`
 layout, so a file written by one loads in the other with every array
 equal: params files hold `control_points`, `refractive_index` and an int64
 `__step__`, patches files the seven BezierPatches fields.
 """
+import json
 import os
 
 import jax.numpy as jnp
@@ -22,8 +23,8 @@ from cbtr_tpu_torch.bezier import build_from_trimesh
 from cbtr_tpu_torch.harness import preprocess
 from cbtr_tpu_torch.mesh.core import make_unit_sphere
 from cbtr_tpu_torch.models.lens_model import LensParams
+from cbtr_tpu_torch.render.render import screen_hits
 from cbtr_tpu_torch.utils import (
-    RateMeter,
     load_params,
     load_patches,
     save_params,
@@ -136,18 +137,16 @@ def test_writes_leave_no_tmp_file(patches, tmp_path):
     assert step == 2
 
 
-def test_rate_meter():
-    m = RateMeter(unit="rays")
-    assert m.tick(100) == 0.0
-    r = m.tick(100)
-    assert r > 0 and m.total == 200
-    assert "rays/s" in str(m)
-
-
 def test_trace_writes_into_logdir(tmp_path):
+    """The Chrome trace holds the program's spans: `trace` turns them on."""
     logdir = tmp_path / "trace"
     with trace(str(logdir)):
         torch.ones(64).cumsum(0)
+        screen_hits(torch.zeros(4, 3), torch.tensor([[1.0, 0.0, 0.0]] * 4),
+                    torch.tensor([1.0, 0.0, 0.0, -10.0]))
     files = os.listdir(logdir)
     assert len(files) == 1 and files[0].endswith(".json")
     assert (logdir / files[0]).stat().st_size > 0
+    with open(logdir / files[0]) as f:
+        names = {e.get("name") for e in json.load(f)["traceEvents"]}
+    assert "cbtr.screen_hits" in names
