@@ -129,14 +129,10 @@ def deterministic(on: bool):
 
 def launch_counts() -> dict:
     """{kernel: its wrapper's launch counter} for every kernel of the port."""
-    from ..ops import cuda_codes, cuda_recompute, cuda_segment, cuda_sweep, cuda_tables
-    from ..ops import cuda_winner
+    from ..ops import launch_counters
     from . import fma_peak
 
-    return {"sweep_select": cuda_sweep.sweep_select, "winner": cuda_winner.sweep_winner,
-            "sweep_codes": cuda_codes.sweep_codes_cuda, "fma_chains": fma_peak.fma_chains,
-            "tables": cuda_tables.build_tables, "pack_rays": cuda_tables.pack_rays,
-            "segment_sum": cuda_segment.segment_sum, **cuda_recompute.COUNTED}
+    return {**launch_counters(), "fma_chains": fma_peak.fma_chains}
 
 
 def counted(fn):

@@ -15,11 +15,19 @@ the tables, the JAX functions' separate `patches` argument is absorbed into
 """
 from __future__ import annotations
 
+import sys
+from typing import NamedTuple, Optional
+
 import torch
 from torch import nn
 
+from .. import config
 from ..bezier.patches import BezierPatches
+from ..ops import cuda_recompute, intersect, launch_counters
+from ..optics import lens
+from ..render import render
 from ..render.render import render_lens_image
+from ..utils import profiling
 from ..utils.profiling import span
 
 _TABLES = ("neighbours", "underlying", "dividers", "bary_inverse", "heights",
@@ -118,19 +126,178 @@ def make_opt_train_step(screen_plane, target, resolution: int = 128,
     params.refractive_index], e.g. `torch.optim.Adam(..., lr=lr)`, which
     has optax.adam's defaults (b1 0.9, b2 0.999, eps 1e-8).  The loss is
     `lens_loss`, as in `make_train_step`; the parameters move in place.
-    Its spans are `make_train_step`'s, the update `opt.step()`."""
+    On the card the step captures its loss and backward as one CUDA graph
+    and replays it (`OptTrainStep`).  Its spans are `make_train_step`'s,
+    the update `opt.step()`."""
+    return OptTrainStep(screen_plane, target, resolution, extent, chunk_size)
+
+
+# The module-level functions that the step's forward looks up by name at
+# each call, as (module, attribute).  A step replays its graph only while
+# each is bound as it was when this module was imported, so that a caller's
+# wrapper or hook runs (eagerly) rather than being skipped by a replay.
+GRAPH_PATH = ((sys.modules[__name__], "render_lens_image"),
+              (render, "trace_through_lens"), (render, "screen_hits"),
+              (render, "splat_bilinear"), (lens, "refract_rays"),
+              (lens, "intersect_rays"), (lens, "winner_tables"),
+              (intersect, "_winner_chunk"), (intersect, "recompute_winner"))
+_PATH_BOUND = tuple(getattr(module, name) for module, name in GRAPH_PATH)
+
+
+def eager_reason(device, rays_need_grad: bool = False) -> Optional[str]:
+    """Why `OptTrainStep` runs its eager body on rays on `device`, or None
+    where it may capture and replay: rays off the card, grad mode off,
+    rays that need a gradient (the graph's static rays need none),
+    `profiling.counting()` or `spans_on()` on (the pair counters and the
+    per-layer ranges exist only on the eager path), or a function of
+    `GRAPH_PATH` re-bound.  `profiling.timing()` alone replays: the span
+    `cbtr.step` then times the replay."""
+    if torch.device(device).type != "cuda":
+        return "rays off the card"
+    if not torch.is_grad_enabled():
+        return "grad mode off"
+    if rays_need_grad:
+        return "rays need a gradient"
+    if profiling.counting_enabled():
+        return "counting() on"
+    if profiling.recording_enabled():
+        return "spans_on() on"
+    for (module, name), bound in zip(GRAPH_PATH, _PATH_BOUND):
+        if getattr(module, name) is not bound:
+            return f"{module.__name__}.{name} re-bound"
+    return None
+
+
+def graph_key(params: LensParams, opt, start, direction) -> tuple:
+    """What a captured step depends on besides the numbers in its tensors:
+    the parameter module and the optimizer, where each parameter and buffer
+    lives and whether it needs a gradient, the rays' shapes, types and
+    device, and the configuration every layer reads at each call (the
+    sweep's modes and the Newton count among it).  The graph reads each
+    tensor at its address: a parameter or buffer given new storage needs a
+    new capture."""
+    tensors = (*params.parameters(), *params.buffers())
+    return (params, opt, tuple((t.data_ptr(), t.requires_grad) for t in tensors),
+            *((t.shape, t.dtype, t.device) for t in (start, direction)),
+            *(tuple(vars(c).values()) for c in (config.DEFAULT, intersect.CFG,
+                                                cuda_recompute.CFG)))
+
+
+class _Graph(NamedTuple):
+    """One captured loss and backward: its key, the graph (which owns its
+    memory pool), the static rays it reads, the loss and the gradients it
+    writes, and the kernel launches it recorded (wrapper, count)."""
+
+    key: tuple
+    graph: "torch.cuda.CUDAGraph"
+    start: torch.Tensor
+    direction: torch.Tensor
+    loss: torch.Tensor
+    grads: tuple
+    launches: tuple
+
+
+class OptTrainStep:
+    """`make_opt_train_step`'s step, which adapts to what it observes.
+
+    Eagerly (`eager_reason`, or a first call with a key): the loss, its
+    backward and `opt.step()`, the gradients set to None first.  On the
+    second eligible call with the same `graph_key` it captures the loss and
+    the backward as one CUDA graph, by torch's whole-network recipe: the
+    rays copied into static buffers, a warm-up on a side stream, the
+    gradients set to None so that the captured backward writes them.  Each
+    later eligible call with that key copies the rays into the static
+    buffers, replays the graph, points each parameter's `.grad` at the
+    graph's gradient and runs `opt.step()` eagerly (the optimizer and its
+    state stay outside the graph), returning a clone of the graph's loss.
+    A replay adds the launches its capture recorded to each kernel
+    wrapper's `launches`.  The graph and its memory pool belong to this
+    object: a new key drops them, and so does dropping the step.  The
+    replayed `.grad` tensors are the graph's, written again at the next
+    replay.  Under `profiling.timing()` each call counts as
+    `cbtr.step.capture`, `.replay` or `.eager`."""
+
+    def __init__(self, screen_plane, target, resolution: int = 128,
+                 extent: float = 4.0, chunk_size: int = 0):
+        self.screen_plane, self.target = screen_plane, target
+        self.resolution, self.extent, self.chunk_size = resolution, extent, chunk_size
+        self._warmed: Optional[tuple] = None    # the key of the last warm-up
+        self._graph: Optional[_Graph] = None
+
+    def _loss(self, params, start, direction):
+        return lens_loss(params, start, direction, self.screen_plane, self.target,
+                         resolution=self.resolution, extent=self.extent,
+                         chunk_size=self.chunk_size)
+
+    def path(self, key: tuple) -> str:
+        """"replay" while this key's graph is held, "capture" on the second
+        eligible call with a key, else "eager": the first call with a key
+        warms up, and drops the graph of another key."""
+        if self._graph is not None and self._graph.key == key:
+            return "replay"
+        if self._warmed == key:
+            return "capture"
+        self._graph, self._warmed = None, key
+        return "eager"
 
     @span("cbtr.step")
-    def step(params: LensParams, opt, start, direction):
-        opt.zero_grad(set_to_none=True)
-        with span("cbtr.step.forward"):
-            loss = lens_loss(params, start, direction, screen_plane, target,
-                             resolution=resolution, extent=extent,
-                             chunk_size=chunk_size)
-        with span("cbtr.step.backward"):
-            loss.backward()
+    def __call__(self, params: LensParams, opt, start, direction):
+        path, key = "eager", None
+        if eager_reason(start.device, start.requires_grad or direction.requires_grad) is None:
+            key = graph_key(params, opt, start, direction)
+            path = self.path(key)
+        profiling.count(f"cbtr.step.{path}")
+        if path == "eager":
+            opt.zero_grad(set_to_none=True)
+            with span("cbtr.step.forward"):
+                loss = self._loss(params, start, direction)
+            with span("cbtr.step.backward"):
+                loss.backward()
+        else:
+            loss = self._replay(path, key, params, opt, start, direction)
         with span("cbtr.step.update"):
             opt.step()
         return params, opt, loss.detach()
 
-    return step
+    def _replay(self, path, key, params, opt, start, direction):
+        """The graph (captured first where `path` is "capture") replayed on
+        these rays, each parameter's `.grad` the graph's; returns a clone
+        of the graph's loss."""
+        if path == "capture":
+            self._graph = self._capture(key, params, opt, start, direction)
+        else:
+            self._graph.start.copy_(start)
+            self._graph.direction.copy_(direction)
+        graph = self._graph
+        graph.graph.replay()
+        if path == "replay":
+            for wrapper, launches in graph.launches:
+                wrapper.launches += launches
+        opt.zero_grad(set_to_none=True)
+        for p, grad in graph.grads:
+            p.grad = grad
+        return graph.loss.clone()
+
+    def _capture(self, key, params, opt, start, direction) -> _Graph:
+        """The loss and backward captured on static copies of the rays, under
+        `key` (the graph not yet replayed)."""
+        device = start.device
+        static = [torch.empty(t.shape, dtype=t.dtype, device=device).copy_(t)
+                  for t in (start, direction)]
+        side = torch.cuda.Stream(device)
+        side.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(side):
+            opt.zero_grad(set_to_none=True)
+            self._loss(params, *static).backward()
+        torch.cuda.current_stream(device).wait_stream(side)
+        opt.zero_grad(set_to_none=True)
+        counters = tuple(launch_counters().values())
+        before = [w.launches for w in counters]
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=side):
+            loss = self._loss(params, *static)
+            loss.backward()
+        launches = tuple((w, w.launches - n) for w, n in zip(counters, before)
+                         if w.launches != n)
+        grads = tuple((p, p.grad) for p in params.parameters() if p.grad is not None)
+        return _Graph(key, graph, *static, loss.detach(), grads, launches)

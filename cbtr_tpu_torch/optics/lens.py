@@ -10,6 +10,7 @@ Status codes follow the reference enum (reference/bezierLens.h:7-11).
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .. import geom
@@ -20,6 +21,19 @@ from ..utils.profiling import backward_span, span
 REFRACT_NONE = 0
 REFRACT_INSIDE = 1
 REFRACT_OUTSIDE = 2
+
+
+def _index_pair(refractive_index, device):
+    """(1 / n, n) in f32 for the entering and the leaving side.  A Python
+    number stays a pair of Python floats, rounded on the host as the card
+    rounds them (n to f32, then the correctly rounded f32 quotient), so
+    that no host-to-device copy waits for the stream; anything else is an
+    f32 tensor on `device`."""
+    if isinstance(refractive_index, (int, float)):
+        n = np.float32(refractive_index)
+        return float(np.float32(1.0) / n), float(n)
+    ri = torch.as_tensor(refractive_index, dtype=torch.float32, device=device)
+    return 1.0 / ri, ri
 
 
 @span("cbtr.refract")
@@ -55,9 +69,7 @@ def refract_rays(patches, refractive_index, start, direction, expected,
     # ray from outside has cos < 0 (normal points outwards)
     going_in = cos_inc < 0.0
     status = torch.where(going_in, REFRACT_INSIDE, REFRACT_OUTSIDE)
-    ri = torch.as_tensor(refractive_index, dtype=torch.float32,
-                         device=cos_inc.device)
-    eff = torch.where(going_in, 1.0 / ri, ri)
+    eff = torch.where(going_in, *_index_pair(refractive_index, cos_inc.device))
     sin2 = eff * eff * (1.0 - cos_inc * cos_inc)
 
     tir = sin2 >= CFG.max_sin2_refraction
@@ -77,7 +89,8 @@ def refract_rays(patches, refractive_index, start, direction, expected,
     new_dir = torch.where(grazing[..., None], direction, bent)
 
     status = torch.where(ok & ~tir, status, REFRACT_NONE)
-    expected = torch.as_tensor(expected, dtype=status.dtype, device=status.device)
+    if not isinstance(expected, int):
+        expected = torch.as_tensor(expected, dtype=status.dtype, device=status.device)
     status = torch.where(status == expected, status, REFRACT_NONE)
 
     alive = (status != REFRACT_NONE)[..., None]

@@ -19,6 +19,8 @@ counter API:
   backward on a thread of its own); no profiler;
 * `counting()` -- the winner kernels count the pairs they evaluate into
   device accumulators (`ops.cuda_sweep.pair_counts`);
+* `count(name)` -- a counter in `timing()`'s totals (a count, no time):
+  the fit step's `cbtr.step.capture`, `.replay` and `.eager`;
 * `trace(logdir)` -- `torch.profiler.profile` (host and, where there is
   a card, device activity) with spans on, writing a Chrome trace into
   `logdir` (viewable in Perfetto or chrome://tracing).
@@ -183,6 +185,19 @@ def counting():
 
 def counting_enabled() -> bool:
     return _COUNTING
+
+
+def recording_enabled() -> bool:
+    """Whether spans are profiler ranges (`spans_on()`)."""
+    return _RECORD
+
+
+def count(name: str) -> None:
+    """While `timing()` is on, add one to `name`'s count and nothing to its
+    time: how often a path ran, beside the spans' totals."""
+    times = _TIMES
+    if times is not None:
+        times.add(name, 0)
 
 
 # ---------------------------------------------------------------------------

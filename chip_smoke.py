@@ -255,6 +255,15 @@ Phases:
      refined or design step 2 forward and 2 backward; a 4K render 32
      forward; a 4K step 32 forward and 32 backward: no chunk is
      checkpointed on the kernels)
+  u  the fit step's CUDA graph (`harness/step_graph.py`): on the headline
+     (robot, 512^2, K1) and the refined robot (1024^2, K2), 6 Adam steps of
+     `make_opt_train_step` (eager, capture, 4 replays) against an eager twin
+     of its body on a copy of the lens, then a restart in place, a hooked
+     (eager) step and 2 replays: winners, losses, gradients, parameters and
+     launches torch.equal, the paths counted 1/4/1; ms a step replayed and
+     eager, in turns; a 4K Adam step (16,777,216 rays in chunks of
+     1,048,576) captured: its peak memory, what it holds between steps, ms
+     a replay
   i  with --against DIR (the root of another checkout, e.g. an earlier
      commit unpacked by `git archive`): that checkout against this one, each
      in fresh processes, in turns (DIR, this, this, DIR): K1, K2 and K3
@@ -1678,6 +1687,38 @@ _F32_OPS = {"add", "sub", "mul", "div", "neg", "abs", "sqrt", "reciprocal", "max
             "minimum", "clamp", "clamp_min", "clamp_max", "rsub"}
 
 
+def _graph_phase(dev, card, scene):
+    """Phase u: the fit step's CUDA graph against its eager body, its
+    speed, and a captured 4K step's memory."""
+    import torch
+
+    from cbtr_tpu_torch.harness import step_graph
+    from cbtr_tpu_torch.models import scenes
+
+    out = {}
+    for name, sc in (("headline", scene),
+                     ("refined", scenes.robot_lens_scene(res=1024, refine=True, device=dev))):
+        rec = step_graph.compare(sc, steps=6, after_restart=2)
+        assert rec["equal"] and rec["counts"] == {"capture": 1, "replay": 4, "eager": 1} \
+            and rec["counts_after_restart"] == {"capture": 0, "replay": 2, "eager": 1}, rec
+        rec["ms"] = step_graph.step_ms(sc)
+        out[name] = rec
+        print(f"[u] {name} ({rec['rays']} x {rec['patches']}): replayed and eager steps "
+              f"equal {rec['equal']} (max rel gap {rec['max_rel_gap']:.3e}), paths "
+              f"{rec['paths']}, counts {rec['counts']} then {rec['counts_after_restart']}, "
+              f"peak {rec['peak_gib']:.3f} GiB", flush=True)
+        print(f"[u] {card} | {name} Adam step, ms (eager, graphed, graphed, eager turns): "
+              f"{rec['ms']}", flush=True)
+        del sc
+        torch.cuda.empty_cache()
+    big = scenes.robot_lens_scene(res=4096, device=dev)
+    out["4k"] = step_graph.graphed_peak(big, chunk_size=1_048_576)
+    print(f"[u] {card} | 4K Adam step captured: {out['4k']}", flush=True)
+    del big
+    torch.cuda.empty_cache()
+    return out
+
+
 def _ops_per_ray():
     """(forward, backward) f32 operations a ray of the recompute kernels: the
     elementwise f32 arithmetic of their plain versions, which evaluate the
@@ -2790,6 +2831,12 @@ def main(argv=None) -> int:
     seg_rows = _segment_phase(dev, card, scene, k1_win)
     print(f"[s] took {time.perf_counter() - t:.1f} s", flush=True)
     del k1_win
+
+    # ---- u: the fit step's CUDA graph -------------------------------------------------
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    _graph_phase(dev, card, scene)
+    print(f"[u] took {time.perf_counter() - t:.1f} s", flush=True)
 
     # ---- r (the summary; the phase ran after phase t) --------------------------------
     # each path's recompute launches (counts set to 0 just before each path):

@@ -11,6 +11,9 @@ and normals by up to 1e-2 (ROADMAP queue C), while op by op the robot image
 and loss come out bit-identical to the port's.  The port's winner search is
 the kernel's plain twin.
 """
+import contextlib
+import types
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -225,3 +228,137 @@ def test_gradient_is_bit_reproducible(robot_train):
     assert grads[0][0].abs().max() > 0
     for a, b in zip(*grads):
         assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# the fit step's CUDA graph: when it captures and replays, and what stays
+# the same on the eager path (the capture itself runs only on the card:
+# tests/test_torch_step_graph_card.py)
+# ---------------------------------------------------------------------------
+
+_CUDA = torch.device("cuda")
+
+
+@pytest.mark.parametrize("case", ["cpu", "grad_off", "rays_need_grad", "counting",
+                                  "spans_on", "timing", "spans_on_and_timing", "none"])
+def test_eager_reason_reads_the_switches(case):
+    """Rays off the card, grad mode off, rays that need a gradient,
+    counting() and spans_on() each make the step run eagerly; timing()
+    alone, and nothing, let it replay."""
+    from cbtr_tpu_torch.utils import profiling
+
+    switches = {"counting": profiling.counting, "spans_on": profiling.spans_on,
+                "timing": profiling.timing}
+    want_eager = case not in ("timing", "none")
+    with contextlib.ExitStack() as stack:
+        for name in case.split("_and_"):
+            if name in switches:
+                stack.enter_context(switches[name]())
+        if case == "grad_off":
+            stack.enter_context(torch.no_grad())
+        reason = lens_model.eager_reason(torch.device("cpu") if case == "cpu" else _CUDA,
+                                         rays_need_grad=case == "rays_need_grad")
+    assert (reason is not None) == want_eager, reason
+
+
+@pytest.mark.parametrize("index", range(len(lens_model.GRAPH_PATH)))
+def test_eager_reason_sees_a_rebound_path_function(index, monkeypatch):
+    """Each function of the step's path re-bound (a caller's hook) makes it
+    run eagerly; put back, the step may replay again."""
+    module, name = lens_model.GRAPH_PATH[index]
+    assert lens_model.eager_reason(_CUDA) is None
+    original = getattr(module, name)
+    monkeypatch.setattr(module, name, lambda *args, **kwargs: original(*args, **kwargs))
+    assert name in lens_model.eager_reason(_CUDA)
+    monkeypatch.setattr(module, name, original)
+    assert lens_model.eager_reason(_CUDA) is None
+
+
+def test_step_path_warms_captures_then_replays():
+    """The first eligible call with a key warms up, the second captures,
+    later ones replay; a new key drops the graph and warms up again."""
+    step = lens_model.make_opt_train_step(torch.zeros(4), torch.zeros((2, 2)), resolution=2)
+    assert [step.path(("a",)), step.path(("a",))] == ["eager", "capture"]
+    step._graph = types.SimpleNamespace(key=("a",))
+    assert [step.path(("a",)), step.path(("a",))] == ["replay", "replay"]
+    assert step.path(("b",)) == "eager" and step._graph is None
+    assert [step.path(("a",)), step.path(("a",))] == ["eager", "capture"]
+
+
+def test_graph_key_follows_what_the_graph_reads(sphere):
+    """The key changes with the parameters' storage, a parameter's
+    requires_grad, the rays' shape and the sweep's mode; equal calls give
+    equal keys."""
+    from cbtr_tpu_torch.ops import intersect
+
+    _, (patches, start, direction, _) = sphere
+    params = lens_model.LensParams(patches, 1.3)
+    opt = torch.optim.Adam(params.parameters(), lr=1e-3)
+    key = lens_model.graph_key(params, opt, start, direction)
+    assert lens_model.graph_key(params, opt, start, direction) == key
+    params.refractive_index.requires_grad_(False)
+    assert lens_model.graph_key(params, opt, start, direction) != key
+    params.refractive_index.requires_grad_(True)
+    assert lens_model.graph_key(params, opt, start[:-1], direction[:-1]) != key
+    with intersect.using_mode(intersect.MODES["fast"]):
+        assert lens_model.graph_key(params, opt, start, direction) != key
+    other = lens_model.LensParams(patches, 1.3)
+    assert lens_model.graph_key(other, opt, start, direction) != key
+    assert lens_model.graph_key(params, opt, start, direction) == key
+
+
+@pytest.mark.parametrize("expected", [lens.REFRACT_INSIDE, lens.REFRACT_OUTSIDE])
+def test_refract_rays_takes_python_and_tensor_inputs_alike(sphere, expected):
+    """An int `expected` and a float index give outputs torch.equal to
+    those of an i32 tensor and an f32 tensor."""
+    _, (patches, start, direction, _) = sphere
+    if expected == lens.REFRACT_OUTSIDE:
+        start = start + torch.tensor([5.0, 0.0, 0.0]) - start.mean(dim=0)
+    plain = lens.refract_rays(patches, 1.3, start, direction, expected)
+    tensors = lens.refract_rays(patches, torch.tensor(1.3), start, direction,
+                                torch.tensor(expected, dtype=torch.int32))
+    assert int((plain[2] == expected).sum()) >= 16
+    for a, b in zip(plain, tensors):
+        assert torch.equal(a, b)
+
+
+def test_index_pair_rounds_as_the_tensor_path():
+    """The host's f32 pair (1 / n, n) of a Python float equals the f32
+    tensor path's bit for bit, over many indices."""
+    for n in np.linspace(1.0, 2.5, 997).tolist() + [1.3, 1.5, 4.0 / 3.0]:
+        inv, ri = lens._index_pair(n, torch.device("cpu"))
+        t_inv, t_ri = lens._index_pair(torch.tensor(n), torch.device("cpu"))
+        assert torch.equal(torch.tensor(inv, dtype=torch.float32), t_inv), n
+        assert torch.equal(torch.tensor(ri, dtype=torch.float32), t_ri), n
+
+
+def test_eager_adam_step_is_its_old_body_over_three_steps(sphere):
+    """On the CPU the step runs eagerly (counted `cbtr.step.eager` under
+    timing()): its losses, gradients and parameters over 3 Adam steps are
+    torch.equal to the body it had before it had a graph."""
+    from cbtr_tpu_torch.harness import step_graph
+    from cbtr_tpu_torch.utils import profiling
+
+    _, (patches, start, direction, screen) = sphere
+    target = torch.linspace(0.0, 2.0, 32 * 32).reshape(32, 32)
+    runs = []
+    for make in (lens_model.make_opt_train_step, step_graph.eager_twin):
+        params = lens_model.LensParams(patches, 1.3)
+        opt = torch.optim.Adam([params.control_points, params.refractive_index], lr=1e-3)
+        step, out = make(screen, target, resolution=32), []
+        with profiling.timing() as times:
+            for _ in range(3):
+                _, _, loss = step(params, opt, start, direction)
+                out += [loss, params.control_points.grad.clone(),
+                        params.refractive_index.grad.clone(),
+                        params.control_points.detach().clone(),
+                        params.refractive_index.detach().clone()]
+        runs.append((out, {k: v[1] for k, v in times.items() if k.startswith("cbtr.step.")
+                           and k.split(".")[-1] in ("eager", "capture", "replay")}))
+    (new, new_counts), (old, _) = runs
+    assert new_counts == {"cbtr.step.eager": 3}
+    assert float(new[0]) > 0
+    for a, b in zip(new, old):
+        assert torch.equal(a, b)
+    # the lens moved: step 3's control points are not step 1's
+    assert not torch.equal(new[3], new[3 + 5 * 2])
