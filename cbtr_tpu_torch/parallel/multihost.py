@@ -7,7 +7,7 @@ ranks form a 1-D mesh over which the rays are split:
 * every rank traces only its own slice of the rays: uploaded from the
   global host arrays (`process_ray_shard`), or synthesized on the device
   from its slice of the global ray indices (`OrthoGrid.rays_at`,
-  `DeviceEmitter.rays_at`), so no rank holds the whole ray set;
+  `emitters.synthesize`), so no rank holds the whole ray set;
 * the lens (a few hundred KB of tables) is replicated;
 * the partial images are summed over the mesh, and the loss is taken on the
   full image on every rank; the control-point and refractive-index
@@ -27,6 +27,7 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 
+from ..render import emitters
 from ..render.render import render_lens_image
 from .sharding import axis_group, ray_device_mesh, sgd_step, sum_over
 
@@ -145,7 +146,8 @@ def render_multihost_emitter(mesh, patches, refractive_index, emitter, screen_pl
     function of (seed, global index) alone: any rank count traces the same
     rays.  emitter.n_rays must split evenly."""
     group, _, _ = axis_group(mesh, axis)
-    s, d, w = emitter.rays_at(_local_indices(mesh, axis, emitter.n_rays, patches.device))
+    s, d, w = emitters.synthesize(emitter, _local_indices(mesh, axis, emitter.n_rays,
+                                                          patches.device))
     img = render_lens_image(patches, refractive_index, s, d, screen_plane, extent=extent,
                             resolution=resolution, chunk_size=chunk_size, weights=w)
     return sum_over(img, group)
@@ -202,8 +204,8 @@ def make_multihost_train_step_emitter(mesh, screen_plane, target, emitter,
     group, _, _ = axis_group(mesh, axis)
 
     def run(params):
-        s, d, w = emitter.rays_at(_local_indices(mesh, axis, emitter.n_rays,
-                                                 params.control_points.device))
+        s, d, w = emitters.synthesize(emitter, _local_indices(
+            mesh, axis, emitter.n_rays, params.control_points.device))
         loss, grads = sgd_step(params, lambda p: p(s, d, screen_plane, resolution=resolution,
                                                    extent=extent, chunk_size=chunk_size,
                                                    ray_weights=w),

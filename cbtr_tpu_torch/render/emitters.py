@@ -11,7 +11,8 @@ Counterpart of cbtr_tpu/render/emitters.py.  Three implementations:
   128-ray tiles stay coherent (`models/fit.py::emitter_rays`).
 
 * `DeviceEmitter` -- rays synthesized on the device, already ordered by that
-  same bin: no host sampling, no host argsort, no upload.
+  same bin: no host sampling, no host argsort, no upload.  `synthesize` is
+  that synthesis, the port's ray synthesis layer (span `cbtr.emitter`).
 
 * `sample_hemisphere` -- directions from a threefry key, on the key's device.
 
@@ -29,6 +30,7 @@ import torch
 
 from ..config import PI
 from ..utils import prng
+from ..utils.profiling import span
 
 
 def belt_patch_counts(belts: int) -> np.ndarray:
@@ -117,13 +119,20 @@ class DeviceEmitter(NamedTuple):
             "frac": frac.astype(np.float32),
         }
 
-    def bins_at(self, idx, tables=None):
+    def draws(self, idx):
+        """The jitter u [N,2] f32 of global indices idx [N]:
+        uniform(fold_in(PRNGKey(seed), i), 2) for each, on idx's device."""
+        key = prng.prng_key(self.seed, idx.device)
+        return prng.uniform(prng.fold_in(key, idx.to(torch.int64)), 2)
+
+    def bins_at(self, idx, tables=None, u=None):
         """The integer and random part of `rays_at`: (u [N,2] f32 jitter,
         patch [N] i64 bin, j [N] f32 index inside the bin, cnt [N] f32 rays
-        in the bin) for global indices idx [N], on idx's device."""
+        in the bin) for global indices idx [N], on idx's device.  u: the
+        draws (`draws`), where the caller made them already."""
         t = tables or self._device_tables(idx.device)
         idx = idx.to(torch.int64)
-        u = prng.uniform(prng.fold_in(prng.prng_key(self.seed, idx.device), idx), 2)
+        u = self.draws(idx) if u is None else u
         patch = torch.searchsorted(t["bounds"], idx, right=True)
         patch = patch.clamp(max=t["bounds"].shape[0] - 1)
         cnt = t["nb"][patch].clamp(min=1).to(torch.float32)
@@ -137,20 +146,36 @@ class DeviceEmitter(NamedTuple):
         """(start [N,3], direction [N,3], weight [N]) f32 for global ray
         indices idx [N] (an integer tensor), on idx's device --
         deterministic in (seed, idx), so callers synthesizing disjoint
-        slices reproduce the whole set's rays."""
-        t = self._device_tables(idx.device)
-        u, patch, j, cnt = self.bins_at(idx, t)
-        cos_a, cos_b = t["cos_a"][patch], t["cos_b"][patch]
-        # stratified cos(incidence) over the belt's [cos_b, cos_a] range
-        u1 = (j + u[:, 0]) / cnt
-        cosv = cos_a - u1 * (cos_a - cos_b)
-        sinv = torch.sqrt(torch.clamp(1.0 - cosv * cosv, min=0.0))
-        turn = t["turn0"][patch] + u[:, 1] * t["turn_w"][patch]
-        d = torch.stack([cosv, sinv * torch.cos(turn), sinv * torch.sin(turn)], dim=-1)
-        d = d / torch.linalg.vector_norm(d, dim=-1, keepdim=True)
-        start = torch.as_tensor(self.origin, dtype=torch.float32, device=idx.device)
-        weight = t["frac"][patch] * float(self.n_rays) / cnt
-        return start.expand(d.shape).contiguous(), d, weight
+        slices reproduce the whole set's rays (`synthesize`)."""
+        return synthesize(self, idx)
+
+
+@span("cbtr.emitter", device=True)
+def synthesize(emitter: DeviceEmitter, idx):
+    """The emitter's rays at global ray indices idx [N] (an integer tensor):
+    (start [N,3], direction [N,3], weight [N]) f32 on idx's device.  The
+    port's ray synthesis layer: the renders and the train step call it
+    through this module's attribute, and under `profiling.timing()` it
+    times its device work (`cbtr.emitter.device`).  The draws are queued
+    first, so that the bin tables' host build overlaps their hash on the
+    card (the tables' uploads then wait for it); after that nothing waits
+    for the card: the start is filled there, not copied from the host."""
+    u = emitter.draws(idx)
+    t = emitter._device_tables(idx.device)
+    _, patch, j, cnt = emitter.bins_at(idx, t, u)
+    cos_a, cos_b = t["cos_a"][patch], t["cos_b"][patch]
+    # stratified cos(incidence) over the belt's [cos_b, cos_a] range
+    u1 = (j + u[:, 0]) / cnt
+    cosv = cos_a - u1 * (cos_a - cos_b)
+    sinv = torch.sqrt(torch.clamp(1.0 - cosv * cosv, min=0.0))
+    turn = t["turn0"][patch] + u[:, 1] * t["turn_w"][patch]
+    d = torch.stack([cosv, sinv * torch.cos(turn), sinv * torch.sin(turn)], dim=-1)
+    d = d / torch.linalg.vector_norm(d, dim=-1, keepdim=True)
+    start = torch.empty_like(d)
+    for k, o in enumerate(emitter.origin):
+        start[:, k] = o
+    weight = t["frac"][patch] * float(emitter.n_rays) / cnt
+    return start, d, weight
 
 
 def sample_hemisphere(key, n: int):

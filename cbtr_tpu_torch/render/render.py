@@ -23,6 +23,7 @@ from ..ops.cuda_segment import segment_sum
 from ..ops.intersect import WHAT_INTERSECT, intersect_rays
 from ..optics.lens import trace_through_lens
 from ..utils.profiling import backward_span, span
+from . import emitters
 
 
 @span("cbtr.screen_hits")
@@ -170,7 +171,7 @@ def render_emitter_image_device(patches, refractive_index, emitter,
     sampling, no host argsort, no ray upload.  The per-ray unbiasing
     weights ride the splat's weight input."""
     idx = torch.arange(emitter.n_rays, dtype=torch.int64, device=patches.device)
-    s, d, w = emitter.rays_at(idx)
+    s, d, w = emitters.synthesize(emitter, idx)
     return render_lens_image(
         patches, refractive_index, s, d, screen_plane, extent=extent,
         resolution=resolution, chunk_size=chunk_size, weights=w,

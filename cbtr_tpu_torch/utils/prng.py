@@ -91,6 +91,8 @@ def uniform(key, n: int, minval: float = 0.0, maxval: float = 1.0):
     bits = random_bits(key, n)
     one = 0x3F800000                     # the bits of 1.0f
     floats = ((bits >> 9) | one).to(torch.int32).view(torch.float32) - 1.0
-    lo = torch.tensor(minval, dtype=torch.float32, device=key.device)
-    hi = torch.tensor(maxval, dtype=torch.float32, device=key.device)
+    # filled on the key's device: a copy from the host would wait for the
+    # hash queued above to finish
+    lo = torch.full((), minval, dtype=torch.float32, device=key.device)
+    hi = torch.full((), maxval, dtype=torch.float32, device=key.device)
     return torch.maximum(lo, floats * (hi - lo) + lo)

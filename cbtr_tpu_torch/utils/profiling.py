@@ -6,7 +6,9 @@ counter API:
 * `span(name)` -- a named span at a layer boundary, as a context manager
   or a decorator.  Spans are off by default: an off span costs one flag
   check and a lookup of its name's shared no-op (the decorator adds its
-  call);
+  call).  `@span(name, device=True)` also times the card: under `timing()`
+  it records a CUDA event pair on the current stream where its work is on
+  a card, resolved into `<name>.device` when the `timing()` block closes;
 * `backward_span(name)` -- a decorator that puts a plain-torch layer's
   backward in a span: while spans or timing are on, a pair of identity
   autograd Functions opens it when the gradient reaches the layer's
@@ -16,7 +18,8 @@ counter API:
   device can be put down to the innermost span the host was in;
 * `timing()` -- each span adds its host-clock duration to a per-name
   total and count (`SpanTimes`), on any thread (autograd runs a CUDA
-  backward on a thread of its own); no profiler;
+  backward on a thread of its own), and each device-timed span its
+  device time between its events under `<name>.device`; no profiler;
 * `counting()` -- the winner kernels count the pairs they evaluate into
   device accumulators (`ops.cuda_sweep.pair_counts`);
 * `count(name)` -- a counter in `timing()`'s totals (a count, no time):
@@ -49,7 +52,12 @@ _LOCK = threading.Lock()
 
 class SpanTimes(dict):
     """name -> [total host ns, count] of the spans closed while `timing()`
-    was on, on every thread."""
+    was on, on every thread; `<name>.device` -> [total device ns, count] of
+    the device-timed ones, once the block has closed."""
+
+    def __init__(self):
+        super().__init__()
+        self.pending = []       # (name, start event, end event), unresolved
 
     def add(self, name: str, ns: int) -> None:
         with _LOCK:
@@ -60,34 +68,65 @@ class SpanTimes(dict):
                 entry[0] += ns
                 entry[1] += 1
 
+    def add_events(self, name: str, start, end) -> None:
+        with _LOCK:
+            self.pending.append((name, start, end))
+
+    def resolve(self) -> None:
+        """Wait for each pending event pair and add its device time."""
+        pending, self.pending = self.pending, []
+        for name, start, end in pending:
+            end.synchronize()
+            self.add(f"{name}.device", round(start.elapsed_time(end) * 1e6))
+
+
+def _cuda_event(device):
+    """A timing event recorded now on `device`'s current stream, or None
+    where the device is no card or its stream is being captured into a
+    CUDA graph (which records no timing event)."""
+    if device is None or device.type != "cuda" or torch.cuda.is_current_stream_capturing():
+        return None
+    event = torch.cuda.Event(enable_timing=True)
+    event.record(torch.cuda.current_stream(device))
+    return event
+
 
 class _Open:
     """What one span holds while it is open: its record_function range and
-    the totals and start it adds to, as the switches were when it opened."""
+    the totals and start it adds to, as the switches were when it opened,
+    and its start event where it times the device given."""
 
-    __slots__ = ("name", "record", "times", "t0")
+    __slots__ = ("name", "record", "times", "t0", "device", "event")
 
-    def __init__(self, name: str):
+    def __init__(self, name: str, device=None):
         self.name = name
         self.record = torch.profiler.record_function(name).__enter__() if _RECORD else None
         self.times = _TIMES
         self.t0 = time.perf_counter_ns() if _TIMES is not None else 0
+        self.device = device
+        self.event = _cuda_event(device) if _TIMES is not None else None
 
     def close(self) -> None:
         if self.times is not None:
             self.times.add(self.name, time.perf_counter_ns() - self.t0)
+            if self.event is not None:
+                end = _cuda_event(self.device)
+                if end is not None:
+                    self.times.add_events(self.name, self.event, end)
         if self.record is not None:
             self.record.__exit__(None, None, None)
 
 
 class _Off:
     """A name's shared no-op: a context that does nothing, and a decorator
-    whose wrapper opens the name's span at each call while spans are on."""
+    whose wrapper opens the name's span at each call while spans are on (a
+    device-timed one on the device of the call's first tensor argument)."""
 
-    __slots__ = ("name",)
+    __slots__ = ("name", "device")
 
-    def __init__(self, name: str):
+    def __init__(self, name: str, device: bool = False):
         self.name = name
+        self.device = device
 
     def __enter__(self):
         return self
@@ -96,14 +135,17 @@ class _Off:
         return False
 
     def __call__(self, fn):
-        name = self.name
+        name, device = self.name, self.device
 
         @functools.wraps(fn)
         def spanned(*args, **kwargs):
             if not _ON:
                 return fn(*args, **kwargs)
-            with _Span(name):
+            opened = _Open(name, _device_of(args) if device else None)
+            try:
                 return fn(*args, **kwargs)
+            finally:
+                opened.close()
 
         return spanned
 
@@ -123,19 +165,22 @@ class _Span(_Off):
         return False
 
 
-_OFF: Dict[str, _Off] = {}
+_OFF: Dict[tuple, _Off] = {}
 
 
-def span(name: str):
+def span(name: str, device: bool = False):
     """The span `name`: `with span(name): ...` or `@span(name)`.  Off (no
     switch on), the name's shared no-op; on, a span that opens a
-    record_function range (`spans_on`) and adds its host time (`timing`)."""
+    record_function range (`spans_on`) and adds its host time (`timing`).
+    device: as a decorator, under `timing()` the span also adds the device
+    time between CUDA events recorded at its open and close, as
+    `<name>.device`, where the call's first tensor argument is on a card."""
     if not _ON:
-        off = _OFF.get(name)
+        off = _OFF.get((name, device))
         if off is None:
-            off = _OFF.setdefault(name, _Off(name))
+            off = _OFF.setdefault((name, device), _Off(name, device))
         return off
-    return _Span(name)
+    return _Span(name, device)
 
 
 def _set(record=None, times=False, counting=None):
@@ -170,10 +215,13 @@ def spans_on():
 @contextlib.contextmanager
 def timing() -> Iterator[SpanTimes]:
     """Inside the block each span adds its host-clock duration
-    (`time.perf_counter_ns`) to the yielded `SpanTimes`, on every thread."""
+    (`time.perf_counter_ns`) to the yielded `SpanTimes`, on every thread;
+    when the block closes, each device-timed span's events are waited for
+    and its device time added (so no span waits for the card inside it)."""
     times = SpanTimes()
     with _switched(times=times):
         yield times
+    times.resolve()
 
 
 def counting():
