@@ -289,8 +289,10 @@ def device_kernels(fn, stages=(), tries: int = 12):
 def _op_name(name: str) -> str:
     """A torch kernel's name without its return type, parameters and the
     arguments after its functor: "vectorized_elementwise_kernel<4,
-    FillFunctor<float>" tells a fill from a copy where 40 characters do not."""
-    name = name.removeprefix("void ").split("(")[0].replace("at::native::", "")
+    FillFunctor<float>" tells a fill from a copy where 40 characters do not.
+    A kernel of an anonymous namespace (the port's) goes by its own name."""
+    name = name.removeprefix("void ").replace("(anonymous namespace)::", "")
+    name = name.split("(")[0].replace("at::native::", "")
     return name[:72]
 
 

@@ -12,23 +12,28 @@ Counterpart of cbtr_tpu/render/emitters.py.  Three implementations:
 
 * `DeviceEmitter` -- rays synthesized on the device, already ordered by that
   same bin: no host sampling, no host argsort, no upload.  `synthesize` is
-  that synthesis, the port's ray synthesis layer (span `cbtr.emitter`).
+  that synthesis, the port's ray synthesis layer (span `cbtr.emitter`): one
+  launch of the kernel csrc/emitter.cu on the card (`ops/cuda_emitter.py`),
+  its plain version `synthesize_reference` on the CPU.
 
 * `sample_hemisphere` -- directions from a threefry key, on the key's device.
 
-The last two draw through `utils.prng`, threefry-2x32 in torch integer ops,
-so their uniform draws are bit-equal to the JAX package's jax.random ones;
-the float tail (cos, sin, sqrt) differs by ulps between XLA, torch's CPU
-code and CUDA.
+The plain versions draw through `utils.prng`, threefry-2x32 in torch integer
+ops, and the kernel in uint32 registers, so their uniform draws are
+bit-equal to the JAX package's jax.random ones; the float tail (cos, sin,
+sqrt) differs by ulps between XLA, torch's CPU code and CUDA.
 """
 from __future__ import annotations
 
+import functools
+from types import MappingProxyType
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from ..config import PI
+from ..ops import cuda_emitter
 from ..utils import prng
 from ..utils.profiling import span
 
@@ -140,26 +145,40 @@ class DeviceEmitter(NamedTuple):
         return u, patch, j, cnt
 
     def _device_tables(self, device):
-        return {k: torch.as_tensor(v, device=device) for k, v in self._tables().items()}
+        """`_tables` on `device`, read-only, built once for each (belts,
+        n_rays, device) and shared by every call (`_bin_tables`)."""
+        return _bin_tables(self.belts, self.n_rays, torch.device(device))
 
     def rays_at(self, idx):
         """(start [N,3], direction [N,3], weight [N]) f32 for global ray
-        indices idx [N] (an integer tensor), on idx's device --
-        deterministic in (seed, idx), so callers synthesizing disjoint
+        indices idx [N] (an integer tensor; int64 on a card), on idx's
+        device -- deterministic in (seed, idx), so callers synthesizing disjoint
         slices reproduce the whole set's rays (`synthesize`)."""
         return synthesize(self, idx)
 
 
 @span("cbtr.emitter", device=True)
 def synthesize(emitter: DeviceEmitter, idx):
-    """The emitter's rays at global ray indices idx [N] (an integer tensor):
-    (start [N,3], direction [N,3], weight [N]) f32 on idx's device.  The
+    """The emitter's rays at global ray indices idx [N] (an integer tensor;
+    int64 on a card): (start [N,3], direction [N,3], weight [N]) f32 on idx's device.  The
     port's ray synthesis layer: the renders and the train step call it
     through this module's attribute, and under `profiling.timing()` it
-    times its device work (`cbtr.emitter.device`).  The draws are queued
-    first, so that the bin tables' host build overlaps their hash on the
-    card (the tables' uploads then wait for it); after that nothing waits
-    for the card: the start is filled there, not copied from the host."""
+    times its device work (`cbtr.emitter.device`).  CUDA indices (int64)
+    go to one launch of csrc/emitter.cu (`cuda_emitter.launch`), which
+    raises on anything it does not take; CPU indices to the plain version
+    `synthesize_reference`.  There is no fallback between the two."""
+    if not idx.is_cuda:
+        return synthesize_reference(emitter, idx)
+    return cuda_emitter.launch(emitter._device_tables(idx.device), idx, emitter.seed,
+                               emitter.origin, emitter.n_rays)
+
+
+def synthesize_reference(emitter: DeviceEmitter, idx):
+    """The plain version of `synthesize`, on idx's device, in torch ops: the
+    draws (`DeviceEmitter.draws`), the bin and index in it (`bins_at`) and
+    the float tail.  The draws are queued first; nothing after them waits
+    for the device: the tables are the emitter's cached ones and the start
+    is filled there, not copied from the host."""
     u = emitter.draws(idx)
     t = emitter._device_tables(idx.device)
     _, patch, j, cnt = emitter.bins_at(idx, t, u)
@@ -176,6 +195,15 @@ def synthesize(emitter: DeviceEmitter, idx):
         start[:, k] = o
     weight = t["frac"][patch] * float(emitter.n_rays) / cnt
     return start, d, weight
+
+
+@functools.lru_cache(maxsize=16)
+def _bin_tables(belts: int, n_rays: int, device: torch.device):
+    """An emitter's per-bin tables (`DeviceEmitter._tables`) on `device`,
+    read-only: they depend on the belts and the ray count alone, so every
+    emitter and call with these shares one upload."""
+    host = DeviceEmitter((0.0, 0.0, 0.0), belts, n_rays)._tables()
+    return MappingProxyType({k: torch.as_tensor(v, device=device) for k, v in host.items()})
 
 
 def sample_hemisphere(key, n: int):

@@ -157,7 +157,12 @@ Phases:
      scene_ortho_grid(512).rays_at torch.equal to the scene's rays and its
      render to the host grid's image, at 4096^2 torch.equal to the host
      grid; render_surface_normals at 512^2 (1 K1 launch) against the plain
-     twin; times of rays_at, the emitter renders and the 4096^2 grid
+     twin; times of rays_at, the emitter renders and the 4096^2 grid;
+     the emitter kernel (csrc/emitter.cu) at the emitter cell's 16,777,216
+     rays against its plain version on the card (`_emitter_phase`: starts
+     and weights equal, directions within one ulp, counted; a strided index
+     at a seed above 2^32; a rank's quarter; one launch a synthesis and a
+     render; its time against its bound and the plain version's; the peak)
   m  design at the configuration of benchmarks/design_lens.py's full run:
      the sphere 15 x 7 at LENS_CENTER (107 vertices, 630 patches), 262,144
      cone-lattice rays of 13 degrees, a 32^2 flat-top target (the rays and
@@ -791,6 +796,102 @@ def _bin_sorted_fraction(d, belts: int) -> float:
     return float(np.mean(np.diff(patch) >= 0))
 
 
+def _ordered_bits(x):
+    """float32 x as int64 in the floats' order (so that the distance of two
+    is the count of floats between them, in ulps)."""
+    import torch
+
+    i = x.view(torch.int32).to(torch.int64)
+    return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+
+
+def _emitter_phase(dev, card, kernels) -> dict:
+    """Phase l's emitter kernel (csrc/emitter.cu) at the emitter cell's
+    shape, 16,777,216 rays of `benchmarks/emitter4k.device_emitter()` (64
+    belts, seed 7): `synthesize` against its plain version
+    `synthesize_reference` on the card, the elements of each output that
+    differ and the largest ulp of a direction component (at most 1;
+    starts and weights equal), the same for a seed above 2^32 at every
+    third index (a strided index), and a rank's quarter equal to the same
+    slice of the whole; one launch a `synthesize` and one a render
+    (`render_multihost_emitter` on a group of one); the kernel's ms (CUDA
+    events around the launch, and its own device time: the mean over the
+    launches the profiler saw) against its bound (28 B a ray at the HBM rate) and the plain version's
+    ms; the peak memory of each."""
+    import torch
+
+    from cbtr_tpu_torch.benchmarks import emitter4k
+    from cbtr_tpu_torch.harness import kernel_ab
+    from cbtr_tpu_torch.models import robot_lens_scene
+    from cbtr_tpu_torch.ops import cuda_emitter
+    from cbtr_tpu_torch.parallel.multihost import multihost_mesh, render_multihost_emitter
+    from cbtr_tpu_torch.render import emitters
+
+    em = emitter4k.device_emitter()
+    n = em.n_rays
+    idx = torch.arange(n, device=dev)
+
+    def peak_of(fn):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        out = fn()
+        torch.cuda.synchronize()
+        return out, torch.cuda.max_memory_allocated(dev) - base
+
+    def held(got, want, label):
+        differ = [int((a != b).sum()) for a, b in zip(got, want)]
+        ulps = (_ordered_bits(got[1]) - _ordered_bits(want[1])).abs()
+        counts = torch.bincount(ulps.flatten()).tolist()
+        print(f"[l] emitter kernel vs synthesize_reference on the card, {label}: elements "
+              f"differing (start, direction, weight) {differ} of {got[1].shape[0]} rays; "
+              f"direction components by ulps 0, 1, ...: {counts}", flush=True)
+        assert differ[0] == 0 and differ[2] == 0 and len(counts) <= 2, (label, differ, counts)
+        return differ, counts
+
+    (got, launches), k_peak = peak_of(lambda: _counted(kernels,
+                                                        lambda: emitters.synthesize(em, idx)))
+    assert launches["emitter"] == 1 and sum(launches.values()) == 1, launches
+    want, p_peak = peak_of(lambda: emitters.synthesize_reference(em, idx))
+    whole = held(got, want, f"{n} rays, seed {em.seed}")
+    del want
+    quarter = idx[n // 4:n // 2]
+    assert all(torch.equal(a, b[quarter]) for a, b in zip(emitters.synthesize(em, quarter), got))
+    far = em._replace(seed=(1 << 32) + 7)
+    strided = idx[1::3]
+    held(emitters.synthesize(far, strided), emitters.synthesize_reference(far, strided),
+         f"seed 2^32 + 7, every third index")
+
+    tables = em._device_tables(dev)
+
+    def launch():
+        return cuda_emitter.launch(tables, idx, em.seed, em.origin, n)
+
+    # the profiler can drop a launch's record inside this script (PERF.md §7):
+    # the kernel's own time is the mean over the launches it saw
+    ops, _, per, _ = kernel_ab.device_kernels(lambda: [launch() for _ in range(20)],
+                                              ("emitter_kernel",))
+    assert set(per) == {"emitter_kernel"}, per
+    ms = {"events": _time_ms(launch, windows=7, inner=10), "kernel": per["emitter_kernel"] / ops,
+          "plain": _time_ms(lambda: emitters.synthesize_reference(em, idx), windows=3, inner=1)}
+    bound = 28 * n / PEAK_BYTES_PER_S * 1e3
+
+    sc = robot_lens_scene(res=1, device=dev)
+    with torch.no_grad():
+        _, render_launches = _counted(kernels, lambda: render_multihost_emitter(
+            multihost_mesh(), sc.patches, sc.refractive_index, em, sc.screen_plane,
+            resolution=256, chunk_size=1 << 20))
+    assert render_launches["emitter"] == 1, render_launches
+    print(f"[l] {card} | emitter kernel {n} rays: {ms['events']:.4f} ms (CUDA events), "
+          f"{ms['kernel']:.4f} ms its own device time, bound {bound:.4f} ms (28 B a ray at "
+          f"3.35 TB/s: {100 * bound / ms['kernel']:.1f} %), plain version "
+          f"{ms['plain']:.3f} ms ({ms['plain'] / ms['events']:.0f}x); peak memory above its "
+          f"inputs {k_peak} B, the plain version's {p_peak} B; launches a synthesize "
+          f"{launches['emitter']}, a render {render_launches['emitter']}", flush=True)
+    return {"rays": n, "ms": ms, "bound_ms": bound, "peak_bytes": k_peak,
+            "plain_peak_bytes": p_peak, "differ": whole[0], "direction_ulps": whole[1]}
+
+
 def _design_phase(dev, card, kernels):
     """Phase m: the design configuration of benchmarks/design_lens.py's full
     run (DESIGN_r05.json): the sphere 15 x 7 at LENS_CENTER (107 vertices,
@@ -902,7 +1003,7 @@ def _design_phase(dev, card, kernels):
     assert step_launches == {"sweep_select": 2, "winner": 0, "sweep_codes": 0,
                              "fma_chains": 0, "tables": 1, "pack_rays": 2,
                              "segment_sum": 2, "recompute_forward": 2,
-                             "recompute_backward": 2}, step_launches
+                             "recompute_backward": 2, "emitter": 0}, step_launches
 
     stages = [(5e-4, 8), (1e-4, 4)]
     n_steps = sum(n for _, n in stages)
@@ -916,7 +1017,7 @@ def _design_phase(dev, card, kernels):
     assert fit_launches == {"sweep_select": 2 * n_steps, "winner": 0, "sweep_codes": 0,
                             "fma_chains": 0, "tables": n_steps, "pack_rays": 2 * n_steps,
                             "segment_sum": 2 * n_steps, "recompute_forward": 2 * n_steps,
-                            "recompute_backward": 2 * n_steps}, fit_launches
+                            "recompute_backward": 2 * n_steps, "emitter": 0}, fit_launches
     assert torch.isfinite(best.vertices).all() and min(losses) < losses[0], losses
     print(f"[m] design: sphere 15 x 7 at LENS_CENTER ({p0.vertices.shape[0]} vertices, "
           f"{built.num_patches} patches), {n_rays} cone-lattice rays (13 deg), {res}^2 "
@@ -1039,7 +1140,7 @@ def _parallel_phase(dev, card, kernels, scene, refined, em, cone):
         assert launches == {"sweep_select": 0, "winner": 0, "sweep_codes": 1,
                             "fma_chains": 0, "tables": 1, "pack_rays": 1,
                             "segment_sum": 0, "recompute_forward": 1,
-                            "recompute_backward": 0}, (name, launches)
+                            "recompute_backward": 0, "emitter": 0}, (name, launches)
         with torch.no_grad():
             want, direct = _counted(kernels, lambda: ix.intersect_rays(p, s, d))
         ok, ok_w = hit.what == ix.WHAT_INTERSECT, want.what == ix.WHAT_INTERSECT
@@ -1088,7 +1189,7 @@ def _parallel_phase(dev, card, kernels, scene, refined, em, cone):
     assert pp_launches == {"sweep_select": 0, "winner": 0, "sweep_codes": 6,
                            "fma_chains": 0, "tables": 6, "pack_rays": 6,
                            "segment_sum": 6, "recompute_forward": 6,
-                           "recompute_backward": 6}, pp_launches
+                           "recompute_backward": 6, "emitter": 0}, pp_launches
     assert np.isfinite(pp_losses).all() and pp_losses[2] < pp_losses[0], pp_losses
     fixed = sharding.make_sharded_train_step(mesh2, screen, zero, resolution=128,
                                              learning_rate=0.0, patch_axis="patches")
@@ -1202,7 +1303,7 @@ def _drivers_phase(dev, card, kernels, scene):
     assert fr_launches == {"sweep_select": 0, "winner": 0, "sweep_codes": 1,
                            "fma_chains": 0, "tables": 1, "pack_rays": 1,
                            "segment_sum": 0, "recompute_forward": 0,
-                           "recompute_backward": 0}, fr_launches
+                           "recompute_backward": 0, "emitter": 0}, fr_launches
     triples = report["triples"]
     assert len(report["followers"]) == R and report["total_follow_candidates"] == len(triples)
     assert len(triples) > 0 and (np.diff(triples[:, 0]) >= 0).all()
@@ -1396,21 +1497,25 @@ def _scale_phase(dev, card, kernels):
     # render (the scatter splat) and, in a step, each chunk's recompute
     # backward and the segment sum of its row gradients (no checkpoint: the
     # kernel pair keeps no residuals, so the forward runs once a chunk)
-    def one_pass(rays, chunk, step=False):
+    # and, where the rays are a DeviceEmitter's, one emitter launch a render
+    # or step
+    def one_pass(rays, chunk, step=False, synthesized=False):
         chunks = -(-rays // chunk)
         return {"sweep_select": 2 * chunks, "winner": 0, "sweep_codes": 0, "fma_chains": 0,
                 "tables": 1, "pack_rays": 2 * chunks,
                 "segment_sum": 1 + (2 * chunks if step else 0),
                 "recompute_forward": 2 * chunks,
-                "recompute_backward": 2 * chunks if step else 0}
+                "recompute_backward": 2 * chunks if step else 0, "emitter": int(synthesized)}
 
     chunk = render["chunk"]
     per_4k, per_4k_step = one_pass(n, chunk), one_pass(n, chunk, step=True)
+    per_em = one_pass(n, chunk, synthesized=True)
+    per_em_step = one_pass(n, chunk, step=True, synthesized=True)
     per_host = one_pass(em["host_path"]["rays"], em["chunk"])
     for launches, want in ((render["launches_per_render"], per_4k),
                            (train["launches_per_step"], per_4k_step),
-                           (em["device_path"]["launches_per_render"], per_4k),
-                           (em["train_step"]["launches_per_step"], per_4k_step),
+                           (em["device_path"]["launches_per_render"], per_em),
+                           (em["train_step"]["launches_per_step"], per_em_step),
                            (em["host_path"]["launches_per_render"], per_host)):
         assert launches == want, (launches, want)
     # the counts set to 0 just before each script: render4k renders three
@@ -1419,8 +1524,8 @@ def _scale_phase(dev, card, kernels):
     # twice
     want = {"render4k": {k: 3 * v for k, v in per_4k.items()},
             "train4k": {k: 2 * v for k, v in per_4k_step.items()},
-            "emitter4k": {k: 3 * v + 2 * per_host[k] + 2 * per_4k_step[k]
-                          for k, v in per_4k.items()}}
+            "emitter4k": {k: 3 * v + 2 * per_host[k] + 2 * per_em_step[k]
+                          for k, v in per_em.items()}}
     assert path_launches == want, (path_launches, want)
     print(f"[p] the 4K paths took {time.perf_counter() - t:.1f} s; launches in each "
           f"script (counts set to 0 just before it) {path_launches}", flush=True)
@@ -2027,7 +2132,7 @@ def main(argv=None) -> int:
     build_s = time.perf_counter() - t
     print(f"[0] card: {card} | torch {torch.__version__} cuda {torch.version.cuda} "
           f"| python {sys.version.split()[0]} | K1 + K2 + K3 + K4 + tables + segment_sum + "
-          f"recompute build (one nvcc per source, in parallel) {build_s:.3f} s",
+          f"recompute + emitter build (one nvcc per source, in parallel) {build_s:.3f} s",
           flush=True)
     for line in build_log.splitlines():
         if line.startswith("==") or "registers" in line or "spill" in line:
@@ -2116,7 +2221,7 @@ def main(argv=None) -> int:
     # the tables once a step (both refractions share them), one ray pack a pass
     assert main_launches == {"sweep_select": 6, "winner": 0, "sweep_codes": 0,
                              "fma_chains": 0, "tables": 3, "pack_rays": 6, "segment_sum": 6,
-                             "recompute_forward": 6, "recompute_backward": 6,
+                             "recompute_forward": 6, "recompute_backward": 6, "emitter": 0,
                              "tile_block_lists": 0}, main_launches
     print(f"[4] train: 3 SGD steps, loss {losses}, |grad cp| max {g_max:.4e}, "
           f"grad n {g_n:.4e}, launches {main_launches}", flush=True)
@@ -2196,7 +2301,7 @@ def main(argv=None) -> int:
     routed = {k: v.launches for k, v in kernels.items()}
     assert routed == {"sweep_select": 0, "winner": 1, "sweep_codes": 0,
                       "fma_chains": 0, "tables": 1, "pack_rays": 1, "segment_sum": 0,
-                      "recompute_forward": 1, "recompute_backward": 0}, routed
+                      "recompute_forward": 1, "recompute_backward": 0, "emitter": 0}, routed
     got = cw.sweep_winner(rp, rs, rd)
     ref = cw.sweep_winner_reference(rp, rs, rd)
     k2_cmp = _compare(got, ref)
@@ -2218,7 +2323,7 @@ def main(argv=None) -> int:
     losses, g_max, g_n, large_launches = _train(lens_model, refined, kernels, 2.5e-7)
     assert large_launches == {"sweep_select": 0, "winner": 6, "sweep_codes": 0,
                               "fma_chains": 0, "tables": 3, "pack_rays": 6, "segment_sum": 6,
-                              "recompute_forward": 6, "recompute_backward": 6,
+                              "recompute_forward": 6, "recompute_backward": 6, "emitter": 0,
                               "tile_block_lists": 0}, large_launches
     r_dcp, r_dn, r_gmax = _gradient_twice(lens_model.params_from_scene(refined), refined,
                                           target)
@@ -2578,7 +2683,7 @@ def main(argv=None) -> int:
         assert fit_launches == {"sweep_select": 12, "winner": 0, "sweep_codes": 0,
                                 "fma_chains": 0, "tables": 6, "pack_rays": 12,
                                 "segment_sum": 12, "recompute_forward": 12,
-                                "recompute_backward": 12}, fit_launches
+                                "recompute_backward": 12, "emitter": 0}, fit_launches
         assert l_full[-1] < l_full[0], l_full
         ckpts = sorted(os.listdir(full))
         assert ckpts == ["ckpt_2.npz", "ckpt_4.npz", "ckpt_6.npz"], ckpts
@@ -2644,7 +2749,7 @@ def main(argv=None) -> int:
     assert big_launches == {"sweep_select": 0, "winner": 6, "sweep_codes": 0,
                             "fma_chains": 0, "tables": 3, "pack_rays": 6,
                             "segment_sum": 6, "recompute_forward": 6,
-                            "recompute_backward": 6}, big_launches
+                            "recompute_backward": 6, "emitter": 0}, big_launches
     assert l_big[-1] < l_big[0], l_big
     big_ms = {"sgd": _fit_step_ms(fit_lens, refined, target, None, sgd_lr),
               "adam": _fit_step_ms(fit_lens, refined, target, "adam", adam_lr)}
@@ -2690,7 +2795,8 @@ def main(argv=None) -> int:
 
     img_dev, em_launches = _counted(kernels, _emit_device)
     img_host = _emit_host()
-    assert em_launches["sweep_select"] == 2 and em_launches["winner"] == 0, em_launches
+    assert em_launches["sweep_select"] == 2 and em_launches["winner"] == 0 and \
+        em_launches["emitter"] == 1, em_launches
     f_dev, f_host = float(img_dev.sum()), float(img_host.sum())
     flux_gap = abs(f_dev - f_host) / max(f_dev, f_host)
     assert torch.isfinite(img_dev).all() and f_dev > 0 and flux_gap < 0.12, (f_dev, f_host)
@@ -2705,6 +2811,9 @@ def main(argv=None) -> int:
           f"render_emitter_image_device {em_ms['device']:.3f} ms vs render_emitter_image "
           f"(host sampling, sort, upload) {em_ms['host']:.3f} ms", flush=True)
     del es, ed, ew, img_dev, img_host
+    torch.cuda.empty_cache()
+    emitter_out = _emitter_phase(dev, card, kernels)
+    torch.cuda.empty_cache()
 
     es, ed = emitter_rays(n_em, belts=16, seed=1, origin=origin, device=dev)
     true = params_from_scene(scene)
@@ -3104,6 +3213,24 @@ def main(argv=None) -> int:
             "bound_ms": k4_bound[0],
             "bound_by": k4_bound[1],
             "library_ms": None,
+        },
+        {
+            "name": "emitter",
+            "route": "cuda",
+            "source": "cbtr_tpu_torch/csrc/emitter.cu",
+            "replaces": None,
+            "launches_per_4k_emitter_render":
+                scale_out["emitter"]["device_path"]["launches_per_render"]["emitter"],
+            "rays": emitter_out["rays"],
+            "ms": emitter_out["ms"]["events"],
+            "kernel_only_ms": emitter_out["ms"]["kernel"],
+            "plain_ms": emitter_out["ms"]["plain"],
+            "bound_ms": emitter_out["bound_ms"],
+            "bound_by": "bytes",
+            "library_ms": None,
+            "differ": emitter_out["differ"],
+            "direction_ulps": emitter_out["direction_ulps"],
+            "peak_bytes": emitter_out["peak_bytes"],
         },
     ]}), flush=True)
     print(card, flush=True)

@@ -18,6 +18,7 @@ import cbtr_tpu_torch.ops.cuda_codes as cc
 import cbtr_tpu_torch.ops.cuda_tables as ct
 import cbtr_tpu_torch.ops.cuda_segment as sg
 import cbtr_tpu_torch.ops.cuda_recompute as cr
+import cbtr_tpu_torch.ops.cuda_emitter as ce
 import cbtr_tpu_torch.harness.determinism
 import cbtr_tpu_torch.benchmarks.fma_peak as fp
 import cbtr_tpu_torch.bench
@@ -83,7 +84,7 @@ assert cs._libraries == {}       # no kernel library built or loaded
 assert cs.sweep_select.launches == 0 and cw.sweep_winner.launches == 0
 assert cc.sweep_codes_cuda.launches == 0 and fp.fma_chains.launches == 0
 assert ct.build_tables.launches == 0 and sg.segment_sum.launches == 0
-assert ct.pack_rays.launches == 0
+assert ct.pack_rays.launches == 0 and ce.launch.launches == 0
 assert all(f.launches == 0 for f in cr.COUNTED.values())
 assert not dist.is_initialized()  # importing the parallel layer starts no group
 assert nat._lib is None and nat.build_error() is None   # no g++ run, nothing loaded

@@ -169,6 +169,13 @@ def test_op_name_tells_torch_kernels_apart():
     assert set(kernel_ab.TABLE_KERNELS) <= set(kernel_ab.KERNEL_NAMES)
 
 
+def test_op_name_drops_the_anonymous_namespace():
+    """The port's kernels live in anonymous namespaces: the profiler's
+    `void (anonymous namespace)::emitter_kernel(...)` is `emitter_kernel`."""
+    name = "void (anonymous namespace)::emitter_kernel((anonymous namespace)::EmitterArgs)"
+    assert kernel_ab._op_name(name) == "emitter_kernel"
+
+
 def test_per_call_divides_one_session_by_its_calls(monkeypatch):
     """`_per_call` profiles `calls` calls in one session (by
     `device_kernels`' rule) and reports ops, busy and device ms by kernel
