@@ -85,8 +85,7 @@ from .models import (
 from .models.fit import emitter_rays
 from .models.scenes import robot_stl_path
 from .ops import cuda_codes as cc
-from .ops import cuda_recompute as cr
-from .ops import cuda_segment as sg
+from .ops import cuda_lib
 from .ops import cuda_sweep as cs
 from .ops import cuda_winner as cw
 from .ops import intersect as ix
@@ -96,16 +95,6 @@ from .render.ray_sort import coherence_keys, intersect_rays_sorted
 REPS = 5              # timing windows per row
 SAMPLE = 4096         # rays of the agreement and recompute checks
 BREAKDOWN_RAYS = 65536
-
-# every kernel wrapper of the port: its launches are counted per run
-WRAPPERS = {
-    "sweep_select": cs.sweep_select,
-    "winner": cw.sweep_winner,
-    "sweep_codes": cc.sweep_codes_cuda,
-    "fma_chains": fp.fma_chains,
-    "segment_sum": sg.segment_sum,
-    **cr.COUNTED,
-}
 
 
 def _log(msg: str) -> None:
@@ -342,8 +331,6 @@ def run(args) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     kind, card = _card(device)
-    for wrapper in WRAPPERS.values():
-        wrapper.launches = 0
 
     # ---- headline: value and gradient at res^2 rays ------------------------
     scene = robot_lens_scene(res=res, device=device)
@@ -532,7 +519,6 @@ def run(args) -> dict:
     base_dt = time.perf_counter() - t0
     base_rays_per_s = s_np.shape[0] / base_dt if base_dt > 0 else 1.0
     extras["baseline_rays_per_s"] = round(base_rays_per_s, 3)
-    extras["kernel_launches"] = {name: w.launches for name, w in WRAPPERS.items()}
 
     return {
         "metric": f"rays/s fwd+bwd on {kind}, robot.stl lens ({res}x{res} rays, "
@@ -557,7 +543,8 @@ def main(argv=None) -> int:
     parser.add_argument("--ell-res", type=int, default=512,
                         help="ellipsoid train-step row's resolution (full preset)")
     parser.add_argument("--device", default="cuda")
-    out = run(parser.parse_args(argv))
+    out, launches = cuda_lib.counted(lambda: run(parser.parse_args(argv)))
+    out["kernel_launches"] = launches    # every kernel's launches in this run
     print(json.dumps(out), flush=True)
     return 0
 

@@ -28,6 +28,7 @@ import argparse
 import numpy as np
 import torch
 
+from ..ops import cuda_lib
 from . import records
 from .render4k import DEFAULT_CHUNK
 from .train4k import repeatable_step
@@ -85,11 +86,11 @@ def run(n: int = 4096 * 4096, belts: int = 64, image_res: int = 256, host_path_n
 
     records.reset_peak(dev)
     dev_render()                                                # build + warm
-    (img, dt_dev), render_launches = records.counted(lambda: records.wall_s(dev_render, dev))
+    (img, dt_dev), render_launches = cuda_lib.counted(lambda: records.wall_s(dev_render, dev))
     peak_render = records.peak_gib(dev)
     img_again = dev_render()
     host_render()                                               # warm (fresh rays anyway)
-    (img_h, dt_host), host_launches = records.counted(lambda: records.wall_s(host_render, dev))
+    (img_h, dt_host), host_launches = cuda_lib.counted(lambda: records.wall_s(host_render, dev))
 
     params = params_from_scene(scene)
     target = img / torch.clamp_min(img.max(), 1.0)
@@ -98,7 +99,7 @@ def run(n: int = 4096 * 4096, belts: int = 64, image_res: int = 256, host_path_n
         chunk_size=chunk), params)
     records.reset_peak(dev)
     first_step = step()                                         # build + warm
-    ((loss, g_cp, g_n), dt_train), step_launches = records.counted(
+    ((loss, g_cp, g_n), dt_train), step_launches = cuda_lib.counted(
         lambda: records.wall_s(step, dev))
     peak_step = records.peak_gib(dev)
     gn = float(torch.linalg.vector_norm(g_cp))

@@ -39,6 +39,7 @@ import time
 
 import torch
 
+from ..ops import cuda_lib
 from ..ops import cuda_sweep as cs
 
 K_CHAINS = 16
@@ -70,12 +71,8 @@ def fma_chains_reference(a, n_iter: int):
     return cs._seq_sum(x, 0)
 
 
-def _library() -> ctypes.CDLL:
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib = cs.load_library("fma_peak", [vp, vp, ci, ci, vp])
-    lib.cbtr_sm_clock_khz.restype = ci
-    lib.cbtr_sm_clock_khz.argtypes = [ci]
-    return lib
+# cbtr_fma_peak's parameters: a, out, N, n_iter, the stream
+_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 
 
 def launch(a, n_iter: int):
@@ -84,31 +81,21 @@ def launch(a, n_iter: int):
     if a.device.type != "cuda":
         raise ValueError(f"K4 runs on CUDA tensors, got {a.device}; on the CPU "
                          "its plain twin computes the same function")
-    cs._check(a, "a", torch.float32, (a.numel(),), a.device)
+    cuda_lib.check_tensor(a, "a", torch.float32, (a.numel(),), a.device)
     if not 0 <= n_iter < 2 ** 31:
         raise ValueError(f"n_iter out of range: {n_iter}")
     out = torch.empty_like(a)
-    lib = _library()
-    with torch.cuda.device(a.device):
-        rc = lib.cbtr_fma_peak(a.data_ptr(), out.data_ptr(), a.numel(), n_iter,
-                               torch.cuda.current_stream(a.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"fma_peak kernel launch failed: "
-                           f"{lib.cbtr_cuda_error_string(rc).decode()} ({rc})")
-    fma_chains.launches += 1
+    cuda_lib.call("fma_chains", _ARGTYPES, a.device, a.data_ptr(), out.data_ptr(), a.numel(),
+                  n_iter)
     return out
 
 
 def fma_chains(a, n_iter: int):
     """K4 wrapper: CPU tensors go to `fma_chains_reference`, CUDA tensors
-    launch csrc/fma_peak.cu; no fallback between the two.
-    `fma_chains.launches` counts the kernel's launches."""
+    launch csrc/fma_peak.cu; no fallback between the two."""
     if not a.is_cuda:
         return fma_chains_reference(a, n_iter)
     return launch(a, n_iter)
-
-
-fma_chains.launches = 0
 
 
 def chains_elements(device) -> int:
@@ -183,7 +170,7 @@ def fma_ceiling(device="cuda") -> float:
         raise ValueError(f"the FMA ceiling is a property of a card, not of {device}")
     index = device.index if device.index is not None else torch.cuda.current_device()
     sms = torch.cuda.get_device_properties(index).multi_processor_count
-    khz = _library().cbtr_sm_clock_khz(index)
+    khz = cuda_lib.entry("fma_peak", "cbtr_sm_clock_khz", [ctypes.c_int])(index)
     if khz <= 0:
         raise RuntimeError(f"cudaDevAttrClockRate not reported for device {index}")
     return sms * FP32_LANES_PER_SM * 2.0 * khz * 1e3

@@ -127,24 +127,6 @@ def deterministic(on: bool):
         torch.use_deterministic_algorithms(False)
 
 
-def launch_counts() -> dict:
-    """{kernel: its wrapper's launch counter} for every kernel of the port."""
-    from ..ops import launch_counters
-    from . import fma_peak
-
-    return {**launch_counters(), "fma_chains": fma_peak.fma_chains}
-
-
-def counted(fn):
-    """(fn's result, {kernel: launches fn made}): every count read just
-    before fn and just after (not reset, so a caller that counts around
-    this one still sees every launch)."""
-    kernels = launch_counts()
-    before = {name: wrapper.launches for name, wrapper in kernels.items()}
-    out = fn()
-    return out, {name: wrapper.launches - before[name] for name, wrapper in kernels.items()}
-
-
 def add_output_args(ap):
     """--out FILE and --label TEXT, the options every script's record takes."""
     ap.add_argument("--out", default="", help="also write the record here")

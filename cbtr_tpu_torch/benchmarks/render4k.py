@@ -34,6 +34,7 @@ import json
 
 import torch
 
+from ..ops import cuda_lib
 from . import records
 
 # rays a chunk of intersect_rays at 4096^2: each chunk's kernel launch, its
@@ -70,7 +71,7 @@ def run_gpu(res: int = 4096, image_res: int = 1024, chunk: int = DEFAULT_CHUNK,
     with records.deterministic(deterministic):
         records.reset_peak(dev)
         img = render(grid)                                      # build + warm
-        (img2, dt), launches = records.counted(lambda: records.wall_s(lambda: render(grid),
+        (img2, dt), launches = cuda_lib.counted(lambda: records.wall_s(lambda: render(grid),
                                                                       dev))
         peak = records.peak_gib(dev)
         # no warm-up of its own: nothing is compiled per layout

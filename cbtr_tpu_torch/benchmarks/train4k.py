@@ -33,6 +33,7 @@ import json
 
 import torch
 
+from ..ops import cuda_lib
 from . import records
 from .render4k import DEFAULT_CHUNK
 
@@ -73,7 +74,7 @@ def run_gpu(res: int = 4096, image_res: int = 128, chunk: int = DEFAULT_CHUNK,
     with records.deterministic(deterministic):
         records.reset_peak(dev)
         first = step()                                          # build + warm
-        (second, dt), launches = records.counted(lambda: records.wall_s(step, dev))
+        (second, dt), launches = cuda_lib.counted(lambda: records.wall_s(step, dev))
         peak = records.peak_gib(dev)
     loss, g_cp, g_n = first
     gnorm = float(torch.linalg.vector_norm(g_cp))

@@ -117,8 +117,8 @@ def compare(scene, steps: int = 6, after_restart: int = 2, resolution: int = 128
     every winner, loss, gradient, parameter and launch count was equal, the
     largest relative gap of any of them, the path counts before and after
     the restart and the peak device memory."""
-    from ..benchmarks import records
     from ..models import lens_model
+    from ..ops import cuda_lib
     from ..utils import profiling
 
     device = scene.start.device
@@ -132,7 +132,6 @@ def compare(scene, steps: int = 6, after_restart: int = 2, resolution: int = 128
         sides[name] = {"params": params, "opt": opt, "initial": _leaves(params),
                        "step": make(scene.screen_plane, target, resolution=resolution,
                                     chunk_size=chunk_size)}
-    counters = records.launch_counts()
     equal, gap, paths, kept = True, 0.0, [], []
     counts = []
 
@@ -141,15 +140,15 @@ def compare(scene, steps: int = 6, after_restart: int = 2, resolution: int = 128
         out = {}
         for name, side in sides.items():
             n_calls = len(calls)
-            before = {k: w.launches for k, w in counters.items()}
             path_before = {p: times.get(f"cbtr.step.{p}", [0, 0])[1] for p in PATHS}
-            _, _, loss = side["step"](side["params"], side["opt"], start, direction)
+            (_, _, loss), launches = cuda_lib.counted(
+                lambda: side["step"](side["params"], side["opt"], start, direction))
             torch.cuda.synchronize(device)
             new = calls[n_calls:]
             path = next((p for p in PATHS
                          if times.get(f"cbtr.step.{p}", [0, 0])[1] > path_before[p]), None)
             out[name] = {"path": path, "new": new,
-                         "launches": {k: w.launches - before[k] for k, w in counters.items()},
+                         "launches": launches,
                          "loss": loss.clone(), "grads": _grads(side["params"]),
                          "leaves": _leaves(side["params"])}
         g, t = out["graphed"], out["twin"]

@@ -23,7 +23,7 @@ from torch import nn
 
 from .. import config
 from ..bezier.patches import BezierPatches
-from ..ops import cuda_recompute, intersect, launch_counters
+from ..ops import cuda_lib, cuda_recompute, intersect
 from ..optics import lens
 from ..render import render
 from ..render.render import render_lens_image
@@ -186,7 +186,7 @@ def graph_key(params: LensParams, opt, start, direction) -> tuple:
 class _Graph(NamedTuple):
     """One captured loss and backward: its key, the graph (which owns its
     memory pool), the static rays it reads, the loss and the gradients it
-    writes, and the kernel launches it recorded (wrapper, count)."""
+    writes, and the kernel launches it recorded ({kernel: launches})."""
 
     key: tuple
     graph: "torch.cuda.CUDAGraph"
@@ -194,7 +194,7 @@ class _Graph(NamedTuple):
     direction: torch.Tensor
     loss: torch.Tensor
     grads: tuple
-    launches: tuple
+    launches: dict
 
 
 class OptTrainStep:
@@ -210,8 +210,8 @@ class OptTrainStep:
     buffers, replays the graph, points each parameter's `.grad` at the
     graph's gradient and runs `opt.step()` eagerly (the optimizer and its
     state stay outside the graph), returning a clone of the graph's loss.
-    A replay adds the launches its capture recorded to each kernel
-    wrapper's `launches`.  The graph and its memory pool belong to this
+    A replay adds the launches its capture recorded to the kernels' counts
+    (`cuda_lib.add_launches`).  The graph and its memory pool belong to this
     object: a new key drops them, and so does dropping the step.  The
     replayed `.grad` tensors are the graph's, written again at the next
     replay.  Under `profiling.timing()` each call counts as
@@ -271,8 +271,7 @@ class OptTrainStep:
         graph = self._graph
         graph.graph.replay()
         if path == "replay":
-            for wrapper, launches in graph.launches:
-                wrapper.launches += launches
+            cuda_lib.add_launches(graph.launches)
         opt.zero_grad(set_to_none=True)
         for p, grad in graph.grads:
             p.grad = grad
@@ -291,13 +290,14 @@ class OptTrainStep:
             self._loss(params, *static).backward()
         torch.cuda.current_stream(device).wait_stream(side)
         opt.zero_grad(set_to_none=True)
-        counters = tuple(launch_counters().values())
-        before = [w.launches for w in counters]
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, stream=side):
-            loss = self._loss(params, *static)
-            loss.backward()
-        launches = tuple((w, w.launches - n) for w, n in zip(counters, before)
-                         if w.launches != n)
+
+        def capture():
+            with torch.cuda.graph(graph, stream=side):
+                loss = self._loss(params, *static)
+                loss.backward()
+            return loss
+
+        loss, launches = cuda_lib.counted(capture)
         grads = tuple((p, p.grad) for p in params.parameters() if p.grad is not None)
         return _Graph(key, graph, *static, loss.detach(), grads, launches)

@@ -4,7 +4,7 @@ Counterpart of cbtr_tpu/native/__init__.py, over the port's own copy of its
 source (cbtr_native.cpp here, byte for byte the JAX package's).  The library
 is built with g++ at the first call, never at import, with the JAX loader's
 flags, so the two libraries compute the same bits.  It lands in the ignored
-build directory of the CUDA kernels (`ops.cuda_sweep.BUILD_DIR`), compiled
+build directory of the CUDA kernels (`ops.cuda_lib.BUILD_DIR`), compiled
 under a name of its own and moved into place, so processes that build at
 once each load a whole library.  `available()` gates callers; the NumPy
 implementation in mesh/core.py remains the behavioural oracle and fallback,
@@ -20,7 +20,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 
-from ..ops.cuda_sweep import BUILD_DIR
+from ..ops.cuda_lib import BUILD_DIR
 
 SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "cbtr_native.cpp")
 LIB_PATH = os.path.join(BUILD_DIR, "libcbtr_native.so")

@@ -40,6 +40,7 @@ import torch
 
 from ..bezier.patches import BezierPatches
 from ..config import DEFAULT as CFG
+from . import cuda_lib
 from . import cuda_sweep as cs
 from . import cuda_tables
 from . import intersect as ix
@@ -49,6 +50,11 @@ BLOCK_P = 32
 
 # (ray, patch) pairs per chunk of the plain twin (K2's twin's bound)
 _REFERENCE_CHUNK_PAIRS = cs._REFERENCE_CHUNK_R * 512
+
+# cbtr_sweep_codes' parameters: 8 pointers, T, P, P_pad, block_p, use_aabb,
+# iterations, 4 tolerances, clamp_secant, the mode, the stream
+_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_float] * 4 \
+    + [ctypes.c_int] * 2 + [ctypes.c_void_p]
 
 
 def sweep_codes_reference(patches: BezierPatches, start, direction,
@@ -142,7 +148,7 @@ def check_inputs(inputs: CodesInputs):
         (inputs.patch_t, "patch_t", torch.float32, (P_pad, cs._N_ROWS)),
         (inputs.bounds, "bounds", torch.float32, (P_pad // BLOCK_P, cs._N_BOUNDS)),
     ):
-        cs._check(t, name, dtype, shape, device)
+        cuda_lib.check_tensor(t, name, dtype, shape, device)
     if device.type != "cuda":
         raise ValueError(f"K3 runs on CUDA tensors, got {device}; on the CPU "
                          "its plain twin computes the same function")
@@ -165,37 +171,29 @@ def launch(inputs: CodesInputs, out=None, lists: bool = False,
     T, P_pad = check_inputs(inputs)
     device, R_pad, B = inputs.rays_t.device, T * cs.TILE_R, P_pad // BLOCK_P
     code, dist = filled_outputs(inputs) if out is None else out
-    cs._check(code, "code", torch.int32, (P_pad, R_pad), device)
-    cs._check(dist, "dist", torch.float32, (P_pad, R_pad), device)
+    cuda_lib.check_tensor(code, "code", torch.int32, (P_pad, R_pad), device)
+    cuda_lib.check_tensor(dist, "dist", torch.float32, (P_pad, R_pad), device)
     result = CodesOutputs(
         code, dist, counts=torch.empty(T, dtype=torch.int32, device=device),
         lists=torch.full((B, T), -1, dtype=torch.int32, device=device) if lists else None,
         pairs=torch.zeros(T, dtype=torch.int32, device=device) if pairs else None)
 
-    vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib = cs.load_library("sweep_codes", [vp] * 8 + [ci] * 6 + [cf] * 4 + [ci, ci, vp])
-    with torch.cuda.device(device):
-        rc = lib.cbtr_sweep_codes(
-            inputs.rays_t.data_ptr(), inputs.patch_t.data_ptr(),
-            inputs.bounds.data_ptr(), code.data_ptr(), dist.data_ptr(),
-            result.counts.data_ptr(),
-            result.lists.data_ptr() if lists else None,
-            result.pairs.data_ptr() if pairs else None,
-            T, inputs.num_patches, P_pad, BLOCK_P, int(inputs.use_aabb),
-            int(CFG.root_search_iterations),
-            CFG.ray_plane_intersection_epsilon,
-            CFG.intersection_estimation_epsilon,
-            CFG.max_intersection_distance_from_ray,
-            CFG.minimal_ray_distance,
-            int(CFG.clamp_secant_estimate),
-            ix.sweep_mode().code,
-            torch.cuda.current_stream(device).cuda_stream,
-        )
-    if rc != 0:
-        raise RuntimeError(
-            f"sweep_codes kernel launch failed: "
-            f"{lib.cbtr_cuda_error_string(rc).decode()} ({rc})")
-    sweep_codes_cuda.launches += 1
+    cuda_lib.call(
+        "sweep_codes", _ARGTYPES, device,
+        inputs.rays_t.data_ptr(), inputs.patch_t.data_ptr(),
+        inputs.bounds.data_ptr(), code.data_ptr(), dist.data_ptr(),
+        result.counts.data_ptr(),
+        result.lists.data_ptr() if lists else None,
+        result.pairs.data_ptr() if pairs else None,
+        T, inputs.num_patches, P_pad, BLOCK_P, int(inputs.use_aabb),
+        int(CFG.root_search_iterations),
+        CFG.ray_plane_intersection_epsilon,
+        CFG.intersection_estimation_epsilon,
+        CFG.max_intersection_distance_from_ray,
+        CFG.minimal_ray_distance,
+        int(CFG.clamp_secant_estimate),
+        ix.sweep_mode().code,
+    )
     return result
 
 
@@ -207,13 +205,9 @@ def sweep_codes_cuda(patches: BezierPatches, start, direction,
     CPU tensors go to `sweep_codes_reference`; CUDA tensors launch
     csrc/sweep_codes.cu (both in the mode config asks for) and get the
     [R, P] (transposed, not contiguous) view of its patch-major output.
-    There is no fallback between the two: a build or launch failure raises.
-    `sweep_codes_cuda.launches` counts the kernel's launches."""
+    There is no fallback between the two: a build or launch failure raises."""
     if not start.is_cuda:
         return sweep_codes_reference(patches, start, direction, use_aabb)
     out = launch(prepare_inputs(patches, start, direction, use_aabb))
     R, P = start.shape[0], patches.num_patches
     return out.code.T[:R, :P], out.dist.T[:R, :P]
-
-
-sweep_codes_cuda.launches = 0

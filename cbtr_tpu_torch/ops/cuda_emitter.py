@@ -16,8 +16,7 @@ import ctypes
 
 import torch
 
-from ..utils.profiling import span
-from . import cuda_sweep as cs
+from . import cuda_lib
 
 _MASK = 0xFFFFFFFF
 # the per-bin tables the kernel reads (`DeviceEmitter._tables`'s keys): the
@@ -28,7 +27,8 @@ _FLOAT_TABLES = ("cos_a", "cos_b", "turn0", "turn_w", "frac")
 _vp, _ll, _ci, _cu, _cf = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_uint,
                            ctypes.c_float)
 # cbtr_emitter's parameters: idx, its stride, n, 8 tables, the bins, the key
-# words, the origin, n_rays, the three outputs, the stream
+# words, the origin, n_rays, the three outputs, the stream (`cuda_lib.call`
+# passes it)
 _ARGTYPES = [_vp, _ll, _ll] + [_vp] * 8 + [_ci, _cu, _cu] + [_cf] * 4 + [_vp] * 4
 
 
@@ -43,7 +43,7 @@ def check_inputs(tables, idx) -> int:
     num_bins = tables["bounds"].shape[0]
     for names, dtype in ((_INT_TABLES, torch.int64), (_FLOAT_TABLES, torch.float32)):
         for name in names:
-            cs._check(tables[name], name, dtype, (num_bins,), idx.device)
+            cuda_lib.check_tensor(tables[name], name, dtype, (num_bins,), idx.device)
     if num_bins == 0:
         raise ValueError("the emitter has no bins")
     if idx.device.type != "cuda":
@@ -53,36 +53,26 @@ def check_inputs(tables, idx) -> int:
     return num_bins
 
 
-def entry_args(tables, idx, seed: int, origin, n_rays: int, outputs, stream) -> tuple:
-    """cbtr_emitter's arguments (`_ARGTYPES`) for these inputs, the outputs
-    (start, direction, weight) and the stream."""
+def entry_args(tables, idx, seed: int, origin, n_rays: int, outputs) -> tuple:
+    """cbtr_emitter's arguments (`_ARGTYPES`) for these inputs and the
+    outputs (start, direction, weight), all but the stream."""
     return (idx.data_ptr(), idx.stride(0), idx.shape[0],
             *(tables[name].data_ptr() for name in _INT_TABLES + _FLOAT_TABLES),
             tables["bounds"].shape[0], 0, int(seed) & _MASK,
             *(float(o) for o in origin), float(n_rays),
-            *(t.data_ptr() for t in outputs), stream)
+            *(t.data_ptr() for t in outputs))
 
 
 def launch(tables, idx, seed: int, origin, n_rays: int):
     """One launch of the emitter kernel on the current stream: (start
     [N, 3], direction [N, 3], weight [N]) f32, contiguous, for the global
     ray indices idx [N] of the emitter with these bin tables, seed, origin
-    and ray count.  `launch.launches` counts the launches; the C call is
-    the span `cbtr.launch.emitter`."""
+    and ray count (`cuda_lib.call`)."""
     check_inputs(tables, idx)
     device, n = idx.device, idx.shape[0]
     outputs = (torch.empty((n, 3), dtype=torch.float32, device=device),
                torch.empty((n, 3), dtype=torch.float32, device=device),
                torch.empty(n, dtype=torch.float32, device=device))
-    lib = cs.load_library("emitter", _ARGTYPES)
-    with torch.cuda.device(device), span("cbtr.launch.emitter"):
-        rc = lib.cbtr_emitter(*entry_args(tables, idx, seed, origin, n_rays, outputs,
-                                          torch.cuda.current_stream(device).cuda_stream))
-    if rc != 0:
-        raise RuntimeError(f"emitter kernel launch failed: "
-                           f"{lib.cbtr_cuda_error_string(rc).decode()} ({rc})")
-    launch.launches += 1
+    cuda_lib.call("emitter", _ARGTYPES, device,
+                  *entry_args(tables, idx, seed, origin, n_rays, outputs))
     return outputs
-
-
-launch.launches = 0

@@ -45,15 +45,14 @@ each direction in one launch.
 backend "plain" run `recompute_reference`; CUDA tensors on backend "auto"
 (`on_kernels`) run `_Recompute`, whose forward and backward launch the
 kernels (`launch_forward`, `launch_backward`) and raise if a build or
-launch fails.  No path falls back from one to the other.  `COUNTED` holds
-the launch counts: one a forward, one a backward.
+launch fails.  No path falls back from one to the other.  `cuda_lib`
+counts the launches: one a forward, one a backward.
 """
 from __future__ import annotations
 
 import contextlib
 import ctypes
 import dataclasses
-import re
 
 import torch
 from torch.autograd.function import once_differentiable
@@ -61,7 +60,7 @@ from torch.autograd.function import once_differentiable
 from ..bezier.patches import BezierPatches
 from ..config import DEFAULT as CFG
 from ..utils.profiling import span
-from . import cuda_segment
+from . import cuda_lib, cuda_segment
 
 # columns of the packed table (BezierPatches.packed_f32): the control net
 # 0..29 (point k, axis x at 3k + x), the plane normal 30..32 and constant 33,
@@ -636,7 +635,7 @@ def recompute_adjoint_reference(table, idx, start, direction, any_hit, g_distanc
 
 
 # ---------------------------------------------------------------------------
-# the kernels: build, load, launch
+# the kernels: launch
 # ---------------------------------------------------------------------------
 
 _VP, _CI, _CF = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -650,18 +649,6 @@ _FORWARD_ARGTYPES = [_VP] * 14 + [_CI] * 2 + _CONFIG_ARGTYPES + [_VP]
 _BACKWARD_ARGTYPES = [_VP] * 13 + [_CI] * 2 + _CONFIG_ARGTYPES + [_VP]
 
 
-def _library():
-    """csrc/recompute.cu's library (`cuda_sweep.load_library`) with both
-    entry points declared."""
-    from . import cuda_sweep as cs
-
-    lib = cs.load_library("recompute", _FORWARD_ARGTYPES)
-    if lib.cbtr_recompute_backward.argtypes is None:
-        lib.cbtr_recompute_backward.restype = ctypes.c_int
-        lib.cbtr_recompute_backward.argtypes = _BACKWARD_ARGTYPES
-    return lib
-
-
 # cbtr_recompute_attributes' out[0..4]
 ATTRIBUTE_NAMES = ("registers", "local_bytes", "shared_bytes", "threads", "blocks_per_sm")
 
@@ -671,43 +658,13 @@ def attributes(backward: bool) -> dict:
     (ATTRIBUTE_NAMES): the device's answer for its registers, local memory
     (stack frame and spills) and static shared memory, and the blocks of
     its launch one SM holds."""
-    lib = _library()
-    entry = lib.cbtr_recompute_attributes
-    entry.restype = ctypes.c_int
-    entry.argtypes = [_CI, _VP]
+    entry = cuda_lib.entry("recompute", "cbtr_recompute_attributes", [_CI, _VP])
     out = (ctypes.c_int * len(ATTRIBUTE_NAMES))()
     rc = entry(int(backward), ctypes.cast(out, _VP))
     if rc != 0:
         raise RuntimeError(f"cbtr_recompute_attributes failed: "
-                           f"{lib.cbtr_cuda_error_string(rc).decode()} ({rc})")
+                           f"{cuda_lib.error_string('recompute', rc)} ({rc})")
     return dict(zip(ATTRIBUTE_NAMES, out))
-
-
-def ptxas_summary(log: str) -> dict:
-    """{"recompute_forward_kernel" | "recompute_backward_kernel": {stack,
-    spill_stores, spill_loads, registers, shared_bytes}} from nvcc's
-    -Xptxas -v output (`cuda_sweep.build_library`'s log)."""
-    out, name = {}, None
-    for line in log.splitlines():
-        m = re.search(r"Function properties for \S*?(recompute_(?:forward|backward)_kernel)", line)
-        if m:
-            name = m.group(1)
-            out[name] = {}
-            continue
-        if name is None:
-            continue
-        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill "
-                      r"loads", line)
-        if m:
-            out[name].update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
-                             spill_loads=int(m.group(3)))
-        m = re.search(r"Used (\d+) registers", line)
-        if m:
-            smem = re.search(r"(\d+) bytes smem", line)
-            out[name].update(registers=int(m.group(1)),
-                             shared_bytes=int(smem.group(1)) if smem else 0)
-            name = None
-    return out
 
 
 @contextlib.contextmanager
@@ -777,16 +734,10 @@ def launch_forward(table, idx, start, direction, any_hit, win):
     out = (torch.empty(R, **i32), torch.empty(R, **f32), torch.empty((R, 3), **f32),
            torch.empty((R, 3), **f32), torch.empty((R, 3), **f32), torch.empty(R, **f32),
            torch.empty(R, **i32), torch.empty(R, **i32))
-    lib = _library()
-    with torch.cuda.device(device), span("cbtr.launch.recompute_forward"):
-        rc = lib.cbtr_recompute(
-            table.data_ptr(), idx.data_ptr(), start.data_ptr(), direction.data_ptr(),
-            any_hit.data_ptr(), win.data_ptr(), *(t.data_ptr() for t in out),
-            table.shape[0], R, *_config(), torch.cuda.current_stream(device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"recompute forward kernel launch failed: "
-                           f"{lib.cbtr_cuda_error_string(rc).decode()} ({rc})")
-    COUNTED["recompute_forward"].launches += 1
+    cuda_lib.call("recompute_forward", _FORWARD_ARGTYPES, device,
+                  table.data_ptr(), idx.data_ptr(), start.data_ptr(), direction.data_ptr(),
+                  any_hit.data_ptr(), win.data_ptr(), *(t.data_ptr() for t in out),
+                  table.shape[0], R, *_config())
     return out
 
 
@@ -801,17 +752,10 @@ def launch_backward(table, idx, start, direction, any_hit, g_distance, g_point, 
     rows = torch.empty((R, N_COLS), dtype=torch.float32, device=device)
     g_start = torch.empty((R, 3), dtype=torch.float32, device=device)
     g_dir = torch.empty((R, 3), dtype=torch.float32, device=device)
-    lib = _library()
-    with torch.cuda.device(device), span("cbtr.launch.recompute_backward"):
-        rc = lib.cbtr_recompute_backward(
-            table.data_ptr(), idx.data_ptr(), start.data_ptr(), direction.data_ptr(),
-            any_hit.data_ptr(), *(t.data_ptr() for _, t in cot), rows.data_ptr(),
-            g_start.data_ptr(), g_dir.data_ptr(), table.shape[0], R, *_config(),
-            torch.cuda.current_stream(device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"recompute backward kernel launch failed: "
-                           f"{lib.cbtr_cuda_error_string(rc).decode()} ({rc})")
-    COUNTED["recompute_backward"].launches += 1
+    cuda_lib.call("recompute_backward", _BACKWARD_ARGTYPES, device,
+                  table.data_ptr(), idx.data_ptr(), start.data_ptr(), direction.data_ptr(),
+                  any_hit.data_ptr(), *(t.data_ptr() for _, t in cot), rows.data_ptr(),
+                  g_start.data_ptr(), g_dir.data_ptr(), table.shape[0], R, *_config())
     return rows, g_start, g_dir
 
 
@@ -891,10 +835,3 @@ def recompute_kernels(table, start, direction, any_hit, win, values=None):
     out = _Recompute.apply(table, start.contiguous(), direction.contiguous(),
                            any_hit.contiguous(), win.contiguous(), values)
     return ix.RayHit(*out[:7]), out[7]
-
-
-launch_forward.launches = 0
-launch_backward.launches = 0
-# the launchers whose `launches` count each kernel's launches (held here, so
-# that a stage profiler which wraps the module's functions counts on them)
-COUNTED = {"recompute_forward": launch_forward, "recompute_backward": launch_backward}

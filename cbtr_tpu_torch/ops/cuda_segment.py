@@ -27,8 +27,8 @@ image centre.
 `segment_sum` launches csrc/segment_sum.cu for CUDA tensors (f32 values)
 and calls `segment_sum_reference`, which repeats the order, for CPU
 tensors; there is no fallback from one to the other, and a failed build or
-launch raises.  `segment_sum.launches` counts the kernel's launches (one a
-sum, whatever its number of stages).  On the card the rows are grouped by
+launch raises.  `cuda_lib` counts the kernel's launches (one a sum,
+whatever its number of stages).  On the card the rows are grouped by
 the kernel's own stable radix sort on the bits the segment count needs, and
 the offsets and node bases are computed on the device, all enqueued by one
 C call into one workspace sized on the host (`_workspace_plan`): the CUDA
@@ -45,6 +45,7 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from ..utils.profiling import span
+from . import cuda_lib
 
 # children a node of the tree folds (csrc/segment_sum.cu GROUP)
 GROUP = 256
@@ -277,52 +278,38 @@ _ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ct
              ctypes.c_void_p]
 
 
-def _enqueue(lib, ids, vals, num_segments: int, stream):
+def _enqueue(ids, vals, num_segments: int):
     """What `launch` does after its checks, on vals' device: the zeroed
-    output, one workspace of the plan's size and one call of the C entry
-    point, which enqueues every stage on `stream`.  Returns (out, whether it
-    called the library): nothing to add for N, C or S of 0.  Int32 and int64
-    ids go as they are (other integer types are widened first)."""
+    output, one workspace of the plan's size and one launch (`cuda_lib.call`),
+    whose C call enqueues every stage on the current stream; no launch
+    where there is nothing to add (N, C or S of 0).  Int32 and int64 ids go
+    as they are (other integer types are widened first)."""
     N, C = vals.shape
     S = num_segments
     out = torch.zeros((S, C), dtype=torch.float32, device=vals.device)
     if N == 0 or C == 0 or S == 0:
-        return out, False
+        return out
     plan = _workspace_plan(N, S, C)
     if ids.dtype not in (torch.int32, torch.int64):
         ids = ids.to(torch.int64)
     ids, vals = ids.contiguous(), vals.contiguous()
     workspace = torch.empty(plan.nbytes, dtype=torch.uint8, device=vals.device)
-    with span("cbtr.launch.segment_sum"):
-        rc = lib.cbtr_segment_sum(ids.data_ptr(), ids.element_size(), vals.data_ptr(),
-                                  out.data_ptr(), workspace.data_ptr(), N, S, C,
-                                  plan.as_c_array(), stream)
-    if rc != 0:
-        raise RuntimeError(f"segment-sum kernel launch failed: "
-                           f"{lib.cbtr_cuda_error_string(rc).decode()} ({rc})")
-    return out, True
+    cuda_lib.call("segment_sum", _ARGTYPES, vals.device,
+                  ids.data_ptr(), ids.element_size(), vals.data_ptr(), out.data_ptr(),
+                  workspace.data_ptr(), N, S, C, plan.as_c_array())
+    return out
 
 
 def launch(ids, vals, num_segments: int):
     """One segment sum on the kernel, on the current stream: vals an f32
     CUDA tensor [N, C], ids an integer tensor [N] on its device."""
-    # the library loader lives beside the sweep kernels, which import
-    # intersect, which imports this module
-    from . import cuda_sweep as cs
-
     _check(ids, vals, num_segments)
     if vals.device.type != "cuda":
         raise ValueError(f"the segment-sum kernel runs on CUDA tensors, got {vals.device}; "
                          "on the CPU its plain version computes the same function")
     if vals.dtype != torch.float32:
         raise ValueError(f"the segment-sum kernel adds f32 values, got {vals.dtype}")
-    lib = cs.load_library("segment_sum", _ARGTYPES)
-    with torch.cuda.device(vals.device):
-        out, launched = _enqueue(lib, ids, vals, num_segments,
-                                 torch.cuda.current_stream(vals.device).cuda_stream)
-    if launched:
-        segment_sum.launches += 1
-    return out
+    return _enqueue(ids, vals, num_segments)
 
 
 def _sum(ids, vals, num_segments: int):
@@ -389,6 +376,3 @@ def gather_rows(table, idx):
     `index_select`'s atomic `index_add_` on the card).  idx [N] integer in
     [0, table.shape[0])."""
     return _GatherRows.apply(table, idx)
-
-
-segment_sum.launches = 0

@@ -30,28 +30,20 @@ and `half_gate` (each half of a listed block behind its own sphere gate,
 
 `sweep_select` launches csrc/sweep_select.cu for CUDA tensors and calls
 `sweep_select_reference` for CPU tensors; it never falls back from one to
-the other.  The kernels are built with nvcc at first use (no import-time
-work: importing this module needs no nvcc); `build_library` and
-`load_library` serve every kernel of the port (K2 in cuda_winner.py, K3 in
-cuda_codes.py, the table kernel in cuda_tables.py, K4 in
-benchmarks/fma_peak.py).
+the other.  The kernels are built with nvcc at first use and launched
+through `cuda_lib.call`, as every kernel of the port is.
 """
 from __future__ import annotations
 
 import ctypes
 import dataclasses
-import glob
-import os
-import re
-import shutil
-import subprocess
-import threading
 
 import torch
 
 from ..bezier.patches import BezierPatches
 from ..config import DEFAULT as CFG
 from ..utils import profiling
+from . import cuda_lib
 from . import intersect as ix
 
 # feature-column layout of the row-major [P, 64] patch table
@@ -393,94 +385,8 @@ def evaluated_pairs(listed, sphere, block_p: int = BLOCK_P, half_gate: bool = Fa
 
 
 # ---------------------------------------------------------------------------
-# the kernel: build, load, launch
+# the kernel: launch
 # ---------------------------------------------------------------------------
-
-_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
-BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "cbtr_tpu_torch")
-NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    # no FMA contraction, IEEE sqrt and division: the kernels' candidate
-    # arithmetic stays bit-identical to the plain twins' separate torch ops
-    "-fmad=false", "-prec-sqrt=true", "-prec-div=true",
-    "-shared", "-Xcompiler", "-fPIC",
-    # registers, shared memory and spills of every kernel (build_library's output)
-    "-Xptxas", "-v",
-]
-
-# every loaded kernel library by source stem (`load_library`)
-_lock = threading.Lock()
-_libraries: dict[str, ctypes.CDLL] = {}
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    default = "/usr/local/cuda/bin/nvcc"
-    if os.path.exists(default):
-        return default
-    raise RuntimeError("nvcc not found: the CUDA kernels are built with nvcc "
-                       "at first use on a machine with the CUDA toolkit")
-
-
-def library_path(stem: str) -> str:
-    """The shared library built from csrc/<stem>.cu."""
-    return os.path.join(BUILD_DIR, f"libcbtr_{stem}.so")
-
-
-def build_library() -> str:
-    """Compile each csrc/*.cu with NVCC_FLAGS into a library of its own
-    (`library_path`), where it is missing or older than its source or a
-    header: one nvcc per source, all started together.  Returns nvcc's
-    output, each source's under a "== <source>" line (empty when every
-    library was up to date); raises if any build fails."""
-    sources = sorted(glob.glob(os.path.join(_CSRC_DIR, "*.cu")))
-    newest_header = max((os.path.getmtime(f) for f in
-                         glob.glob(os.path.join(_CSRC_DIR, "*.cuh"))), default=0.0)
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    jobs = []
-    for src in sources:
-        lib_path = library_path(os.path.splitext(os.path.basename(src))[0])
-        newest = max(os.path.getmtime(src), newest_header)
-        if os.path.exists(lib_path) and os.path.getmtime(lib_path) >= newest:
-            continue
-        tmp = f"{lib_path}.{os.getpid()}.tmp"
-        proc = subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
-                                stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                                text=True)
-        jobs.append((src, lib_path, tmp, proc))
-    logs, failed = [], []
-    for src, lib_path, tmp, proc in jobs:
-        out, err = proc.communicate()
-        if proc.returncode != 0:
-            failed.append(f"nvcc failed on {src} ({proc.returncode}):\n{err}")
-        else:
-            os.replace(tmp, lib_path)
-            logs.append(f"== {os.path.basename(src)}\n{out}{err}")
-    if failed:
-        raise RuntimeError("\n".join(failed))
-    return "".join(logs)
-
-
-def load_library(stem: str, argtypes) -> ctypes.CDLL:
-    """csrc/<stem>.cu's library, built (`build_library`) and loaded at the
-    first call and kept in `_libraries` for the next ones; its entry point
-    cbtr_<stem>(*argtypes) -> int (a CUDA error code) and
-    cbtr_cuda_error_string are declared."""
-    with _lock:
-        if stem not in _libraries:
-            build_library()
-            lib = ctypes.CDLL(library_path(stem))
-            entry = getattr(lib, f"cbtr_{stem}")
-            entry.restype = ctypes.c_int
-            entry.argtypes = argtypes
-            lib.cbtr_cuda_error_string.restype = ctypes.c_char_p
-            lib.cbtr_cuda_error_string.argtypes = [ctypes.c_int]
-            _libraries[stem] = lib
-        return _libraries[stem]
-
 
 # cbtr_sweep_select's and cbtr_winner's parameters: 9 pointers, T, P, P_pad,
 # block_p, use_aabb, iterations, 4 tolerances, clamp_secant, the mode
@@ -497,51 +403,8 @@ def occupancy(stem: str, P_pad: int, mode: int = 0, half_gate: bool = False) -> 
     the launch's shared memory (a negative CUDA error code on failure)."""
     if half_gate and stem != "sweep_select":
         raise ValueError("half_gate is K1's option")
-    lib = load_library(stem, _ENTRY_ARGTYPES[stem])
-    entry = getattr(lib, f"cbtr_{stem}_occupancy")
-    entry.restype = ctypes.c_int
-    if stem == "sweep_select":
-        entry.argtypes = [ctypes.c_int] * 4
-        return entry(P_pad, BLOCK_P, mode, int(half_gate))
-    entry.argtypes = [ctypes.c_int] * 3
-    return entry(P_pad, BLOCK_P, mode)
-
-
-def ptxas_summary(log: str) -> dict:
-    """{"<kernel><template arguments>": {stack, spill_stores, spill_loads,
-    registers}} for every instantiation of K1-K3 in nvcc's -Xptxas -v output
-    (`build_library`'s log); template arguments as "<mode, half_gate>"."""
-    out, name = {}, None
-    for line in log.splitlines():
-        m = re.search(r"Function properties for \S*?((?:sweep_select|winner|sweep_codes)_kernel)"
-                      r"I(\w*?)EEv", line)
-        if m:
-            args = [("true" if v == "1" else "false") if t == "b" else v
-                    for t, v in re.findall(r"L([ib])(\d+)E", m.group(2) + "E")]
-            name = f"{m.group(1)}<{', '.join(args)}>"
-            out[name] = {}
-            continue
-        if name is None:
-            continue
-        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill "
-                      r"loads", line)
-        if m:
-            out[name].update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
-                             spill_loads=int(m.group(3)))
-        m = re.search(r"Used (\d+) registers", line)
-        if m:
-            out[name]["registers"] = int(m.group(1))
-            name = None
-    return out
-
-
-def _check(t: torch.Tensor, name: str, dtype, shape, device):
-    if t.device != device or t.dtype != dtype or tuple(t.shape) != tuple(shape) \
-            or not t.is_contiguous():
-        raise ValueError(
-            f"{name}: expected contiguous {dtype} {tuple(shape)} on {device}, "
-            f"got {t.dtype} {tuple(t.shape)} on {t.device} "
-            f"(contiguous={t.is_contiguous()})")
+    args = (P_pad, BLOCK_P, mode) + ((int(half_gate),) if stem == "sweep_select" else ())
+    return cuda_lib.entry(stem, f"cbtr_{stem}_occupancy", [ctypes.c_int] * len(args))(*args)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -631,7 +494,7 @@ def check_inputs(inputs: KernelInputs, kernel: str):
         (inputs.bounds, "bounds", torch.float32, (P_pad // inputs.block_p, _N_BOUNDS)),
         (inputs.nb, "neighbours", torch.int32, (P_pad, 3)),
     ):
-        _check(t, name, dtype, shape, device)
+        cuda_lib.check_tensor(t, name, dtype, shape, device)
     if device.type != "cuda":
         raise ValueError(f"{kernel} runs on CUDA tensors, got {device}; on the "
                          "CPU its plain twin computes the same function")
@@ -644,12 +507,10 @@ def launch_kernel(stem: str, inputs: KernelInputs, lists: bool = False,
     stream over tables from `prepare_inputs`, in the mode config asks for
     (`intersect.sweep_mode()`).  lists / pairs also fill the per-tile lists
     and pair counts (for checks; the main path asks for neither); half_gate
-    is K1's option (`evaluated_pairs`).  Every launch adds one to its
-    wrapper's count (`sweep_select.launches`,
-    `cuda_winner.sweep_winner.launches`); while `profiling.counting()` is
-    on it fills the pair counts whether asked or not and adds them to the
-    wrapper's accumulator on the device (`pair_counts`).  The C call is
-    the span `cbtr.launch.k1` (`cbtr.launch.k2`)."""
+    is K1's option (`evaluated_pairs`).  `cuda_lib.call` launches and
+    counts it (as "sweep_select" or "winner"); while `profiling.counting()`
+    is on it fills the pair counts whether asked or not and adds them to
+    the kernel's accumulator on the device (`pair_counts`)."""
     T, P_pad = check_inputs(inputs, "K1" if stem == "sweep_select" else "K2")
     if half_gate and stem != "sweep_select":
         raise ValueError("half_gate is K1's option")
@@ -664,30 +525,23 @@ def launch_kernel(stem: str, inputs: KernelInputs, lists: bool = False,
         lists=torch.full((B, T), -1, dtype=torch.int32, device=device) if lists else None,
         pairs=torch.zeros((T, 2), dtype=torch.int32, device=device) if pairs else None)
 
-    lib = load_library(stem, _ENTRY_ARGTYPES[stem])
-    entry = getattr(lib, f"cbtr_{stem}")
     options = (ix.sweep_mode().code,) + ((int(half_gate),) if stem == "sweep_select" else ())
-    with torch.cuda.device(device), profiling.span(_LAUNCH_SPANS[stem]):
-        rc = entry(
-            inputs.rays_t.data_ptr(), inputs.patch_t.data_ptr(),
-            inputs.bounds.data_ptr(), inputs.nb.data_ptr(),
-            out.dist.data_ptr(), out.win.data_ptr(), out.counts.data_ptr(),
-            out.lists.data_ptr() if lists else None,
-            out.pairs.data_ptr() if pairs else None,
-            T, inputs.num_patches, P_pad, inputs.block_p, int(inputs.use_aabb),
-            int(CFG.root_search_iterations),
-            CFG.ray_plane_intersection_epsilon,
-            CFG.intersection_estimation_epsilon,
-            CFG.max_intersection_distance_from_ray,
-            CFG.minimal_ray_distance,
-            int(CFG.clamp_secant_estimate),
-            *options,
-            torch.cuda.current_stream(device).cuda_stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"{stem} kernel launch failed: "
-                           f"{lib.cbtr_cuda_error_string(rc).decode()} ({rc})")
-    _counted[stem].launches += 1
+    cuda_lib.call(
+        stem, _ENTRY_ARGTYPES[stem], device,
+        inputs.rays_t.data_ptr(), inputs.patch_t.data_ptr(),
+        inputs.bounds.data_ptr(), inputs.nb.data_ptr(),
+        out.dist.data_ptr(), out.win.data_ptr(), out.counts.data_ptr(),
+        out.lists.data_ptr() if lists else None,
+        out.pairs.data_ptr() if pairs else None,
+        T, inputs.num_patches, P_pad, inputs.block_p, int(inputs.use_aabb),
+        int(CFG.root_search_iterations),
+        CFG.ray_plane_intersection_epsilon,
+        CFG.intersection_estimation_epsilon,
+        CFG.max_intersection_distance_from_ray,
+        CFG.minimal_ray_distance,
+        int(CFG.clamp_secant_estimate),
+        *options,
+    )
     if counted:
         _add_pairs(stem, out.pairs.sum(dim=0, dtype=torch.int64))
     return out
@@ -714,8 +568,7 @@ def sweep_select(patches: BezierPatches, start, direction, use_aabb: bool = True
     caller built them (`prepare_inputs` builds them otherwise; the twin
     checks them and builds its own).  There is no fallback between the two:
     a build or launch failure raises, and so does P > _FUSED_MAX_P on the
-    GPU (`intersect_rays` sends that range to K2, cuda_winner.sweep_winner).
-    `sweep_select.launches` counts the kernel's launches."""
+    GPU (`intersect_rays` sends that range to K2, cuda_winner.sweep_winner)."""
     if not start.is_cuda:
         if tables is not None:
             check_tables(tables, patches, BLOCK_P, False)
@@ -728,22 +581,18 @@ def sweep_select(patches: BezierPatches, start, direction, use_aabb: bool = True
     return best < _BIG_F * 0.5, out.win[:R], best
 
 
-sweep_select.launches = 0
-sweep_select.pairs = None
-# the wrapper whose `launches` counts each kernel's launches and whose
-# `pairs` accumulates its pair counts, by source stem (cuda_winner adds K2's)
-_counted = {"sweep_select": sweep_select}
-_LAUNCH_SPANS = {"sweep_select": "cbtr.launch.k1", "winner": "cbtr.launch.k2"}
+# K1's and K2's pass-1 pairs and retries, int64 [2] on the device, added
+# while `profiling.counting()` is on (`pair_counts`); None: none counted
+_counted = dict.fromkeys(("sweep_select", "winner"))
 
 
 def _add_pairs(stem: str, pairs) -> None:
-    """Add int64 [2] (pass-1 pairs, retries) to the wrapper's accumulator,
+    """Add int64 [2] (pass-1 pairs, retries) to the kernel's accumulator,
     on its device, reading nothing back."""
-    wrapper = _counted[stem]
-    if wrapper.pairs is None:
-        wrapper.pairs = pairs.clone()
+    if _counted[stem] is None:
+        _counted[stem] = pairs.clone()
     else:
-        wrapper.pairs.add_(pairs)
+        _counted[stem].add_(pairs)
 
 
 def count_twin_pairs(stem: str, keep) -> None:
@@ -759,10 +608,10 @@ def pair_counts() -> dict:
     """{stem: (pass-1 pairs, retries)} added while `profiling.counting()`
     was on since the last `reset_pair_counts`, each read once; (0, 0) for
     a kernel that counted none."""
-    return {stem: (0, 0) if w.pairs is None else tuple(int(x) for x in w.pairs.tolist())
-            for stem, w in _counted.items()}
+    return {stem: (0, 0) if p is None else tuple(int(x) for x in p.tolist())
+            for stem, p in _counted.items()}
 
 
 def reset_pair_counts() -> None:
-    for wrapper in _counted.values():
-        wrapper.pairs = None
+    for stem in _counted:
+        _counted[stem] = None

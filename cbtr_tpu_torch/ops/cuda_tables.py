@@ -36,7 +36,7 @@ import functools
 import torch
 
 from ..bezier.patches import BezierPatches
-from ..utils.profiling import span
+from . import cuda_lib
 from . import cuda_sweep as cs
 
 # the float leaves the kernel reads, in its argument order
@@ -164,16 +164,6 @@ def _table_leaves(patches: BezierPatches):
     return leaves, nb.to(torch.int32).contiguous()
 
 
-def _library() -> ctypes.CDLL:
-    """csrc/tables.cu's library (`cuda_sweep.load_library`) with both of its
-    entry points declared."""
-    lib = cs.load_library("tables", _TABLES_ARGTYPES)
-    if lib.cbtr_pack_rays.argtypes is None:
-        lib.cbtr_pack_rays.restype = ctypes.c_int
-        lib.cbtr_pack_rays.argtypes = _PACK_ARGTYPES
-    return lib
-
-
 def launch(patches: BezierPatches, block_p: int = cs.BLOCK_P,
            clamp: bool = False) -> PatchTables:
     """One launch of the table kernel on the current stream, into one new
@@ -187,17 +177,10 @@ def launch(patches: BezierPatches, block_p: int = cs.BLOCK_P,
     device = patches.device
     leaves, neighbours = _table_leaves(patches)
     workspace = torch.empty(plan.nbytes, dtype=torch.uint8, device=device)
-    lib = _library()
-    with torch.cuda.device(device), span("cbtr.launch.tables"):
-        rc = lib.cbtr_tables(
-            *(leaf.data_ptr() for leaf in leaves), neighbours.data_ptr(),
-            workspace.data_ptr(), workspace.numel(), plan.as_c_array(),
-            patches.num_patches, block_p, int(clamp),
-            torch.cuda.current_stream(device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"tables kernel launch failed: "
-                           f"{lib.cbtr_cuda_error_string(rc).decode()} ({rc})")
-    _COUNTED["tables"].launches += 1
+    cuda_lib.call("tables", _TABLES_ARGTYPES, device,
+                  *(leaf.data_ptr() for leaf in leaves), neighbours.data_ptr(),
+                  workspace.data_ptr(), workspace.numel(), plan.as_c_array(),
+                  patches.num_patches, block_p, int(clamp))
     return PatchTables(*_views(workspace, plan), patches.num_patches, block_p, clamp)
 
 
@@ -209,14 +192,10 @@ def build_tables(patches: BezierPatches, block_p: int = cs.BLOCK_P,
 
     CPU patches go to `build_tables_reference`; CUDA patches launch
     csrc/tables.cu (f32 leaves only: anything else raises).  There is no
-    fallback between the two: a build or launch failure raises.
-    `build_tables.launches` counts the kernel's launches."""
+    fallback between the two: a build or launch failure raises."""
     if not patches.control_points.is_cuda:
         return build_tables_reference(patches, block_p, clamp)
     return launch(patches, block_p, clamp)
-
-
-build_tables.launches = 0
 
 
 def launch_pack_rays(start, direction) -> torch.Tensor:
@@ -237,14 +216,8 @@ def launch_pack_rays(start, direction) -> torch.Tensor:
                          "the same function")
     R_pad = R + (-R) % cs.TILE_R
     rays_t = torch.empty((8, R_pad), dtype=torch.float32, device=device)
-    lib = _library()
-    with torch.cuda.device(device), span("cbtr.launch.pack_rays"):
-        rc = lib.cbtr_pack_rays(start.data_ptr(), direction.data_ptr(), rays_t.data_ptr(), R, R_pad,
-                   torch.cuda.current_stream(device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"ray-pack kernel launch failed: "
-                           f"{lib.cbtr_cuda_error_string(rc).decode()} ({rc})")
-    _COUNTED["pack_rays"].launches += 1
+    cuda_lib.call("pack_rays", _PACK_ARGTYPES, device,
+                  start.data_ptr(), direction.data_ptr(), rays_t.data_ptr(), R, R_pad)
     return rays_t
 
 
@@ -254,14 +227,7 @@ def pack_rays(start, direction) -> torch.Tensor:
 
     CPU rays go to `cuda_sweep.pad_rays`; CUDA rays launch csrc/tables.cu's
     ray-pack kernel (contiguous f32 [R, 3] only: anything else raises).
-    There is no fallback between the two.  `pack_rays.launches` counts the
-    kernel's launches."""
+    There is no fallback between the two."""
     if not start.is_cuda:
         return cs.pad_rays(start, direction)
     return launch_pack_rays(start, direction)
-
-
-pack_rays.launches = 0
-# the wrappers whose `launches` count each kernel's launches (held here, so
-# that a stage profiler which wraps the module's functions counts on them)
-_COUNTED = {"tables": build_tables, "pack_rays": pack_rays}

@@ -110,8 +110,7 @@ def sweep_winner(patches: BezierPatches, start, direction, use_aabb: bool = True
     csrc/winner.cu; both in the mode config asks for
     (`intersect.sweep_mode()`); use_aabb as in `cuda_sweep.tile_block_lists`; tables as
     in `prepare_inputs` (the twin checks them and builds its own).  There
-    is no fallback between the two: a build or launch failure raises.
-    `sweep_winner.launches` counts the kernel's launches."""
+    is no fallback between the two: a build or launch failure raises."""
     if not start.is_cuda:
         if tables is not None:
             cs.check_tables(tables, patches, cs.BLOCK_P, True)
@@ -120,8 +119,3 @@ def sweep_winner(patches: BezierPatches, start, direction, use_aabb: bool = True
     R = start.shape[0]
     best = out.dist[:R]
     return best < cs._BIG_F * 0.5, out.win[:R], best
-
-
-sweep_winner.launches = 0
-sweep_winner.pairs = None
-cs._counted["winner"] = sweep_winner

@@ -63,8 +63,8 @@ Phases:
      list builder `tile_block_lists`, with and without the AABB leg, and
      its pass-1 pairs against `evaluated_pairs`
   3  the render on K1 and on the plain twin
-  4  three SGD train steps (the headline path; launch counts reset before
-     it, `tile_block_lists` counted: the GPU path never calls it); the
+  4  three SGD train steps (the headline path; their launches counted,
+     and `tile_block_lists`' calls: the GPU path never calls it); the
      loss must fall
   5  timings: CUDA events, median of 7 windows after warm-up; the rays of
      the step's second refraction, K1's lists and time there; both passes'
@@ -76,7 +76,7 @@ Phases:
   a  refined robot, P = 1800, 512^2: the routing (K2, never K1, above 1024
      patches), K2 against its twin on every ray and its lists against the
      host builder's, the render on K2 and on the twin, three SGD steps (the
-     large-P path; counts reset before it, no `tile_block_lists` call),
+     large-P path; launches counted, no `tile_block_lists` call),
      the gradient twice at one lens equal bit for bit, forward and
      fixed-lens step times, both passes' pairs and K2's bound
   b  split-4 robot, P = 7200, 512^2: K2 on the full grid against the twin on
@@ -135,7 +135,7 @@ Phases:
      at the bench's start, read at its end) show K1, K3 and K4 launched
   j  the fit loop on the headline (robot, 512^2, 128^2 zero target):
      `fit_lens` 6 SGD steps at phase 4's step size with a checkpoint every 2
-     (counts reset before it: K1 12, tables 6, K2 0; the loss falls;
+     (launches counted: K1 12, tables 6, K2 0; the loss falls;
      ckpt_2/4/6 written); a fresh fit of 3 steps resumed to 6, and a second
      uninterrupted fit, against the first, in torch's default mode (both
      bit-equal to it) and in its deterministic mode (the resumed control
@@ -190,7 +190,7 @@ Phases:
      entry() and dryrun_multichip(1)
   o  the native runtime against the NumPy path on the robot and the split-6
      robot (tests/test_native.py's bars) and the time of each on the host;
-     `followers_report` at 262,144 x 450 (counts reset before it: K3 and
+     `followers_report` at 262,144 x 450 (launches counted: K3 and
      tables 1 launch each) identical to the report the twin's codes give,
      against the unculled `intersect.sweep_codes` (the follow triples the
      cull drops counted, none added; both in chunks of 65,536 rays), its
@@ -208,8 +208,8 @@ Phases:
      render4k (the 4096^2 grid -> a 1024^2 image), train4k (one fwd+bwd
      SGD step, 128^2 target) and emitter4k (DeviceEmitter, 64 belts, seed
      7 -> 256^2; the host path cut to 4,194,304 rays; one emitter step),
-     each through its script's entry point with every count set to 0
-     before and read after, equal to exactly its renders' and steps'
+     each through its script's entry point with its launches counted,
+     equal to exactly its renders' and steps'
      launches (the table kernel once a render or step, K1 and the ray pack
      once a chunk a refraction; the segment sum once a render and once
      more a chunk in a step), each
@@ -342,12 +342,13 @@ def _assert_exact(name, cmp):
     assert hits > 1000, (name, cmp)
 
 
-def _train(lens_model, scene, launches_of, learning_rate):
-    """Three SGD steps with every launch count reset just before them and
-    the host list builder's calls counted: returns (losses, |grad cp| max,
-    grad n, {kernel: launches}); fails if the steps called the builder."""
+def _train(lens_model, scene, learning_rate):
+    """Three SGD steps with their launches and the host list builder's
+    calls counted: returns (losses, |grad cp| max, grad n, {kernel:
+    launches}); fails if the steps called the builder."""
     import torch
 
+    from cbtr_tpu_torch.ops import cuda_lib
     from cbtr_tpu_torch.ops import cuda_sweep as cs
 
     target = torch.zeros((128, 128), dtype=torch.float32, device=scene.start.device)
@@ -355,9 +356,9 @@ def _train(lens_model, scene, launches_of, learning_rate):
                                       learning_rate=learning_rate)
     params = lens_model.params_from_scene(scene)
     losses = []
-    with _calls(cs, "tile_block_lists") as list_calls:
-        for counted in launches_of.values():
-            counted.launches = 0
+
+    def three_steps():
+        nonlocal params
         for _ in range(3):
             params, loss = step(params, scene.start, scene.direction)
             torch.cuda.synchronize()
@@ -365,7 +366,10 @@ def _train(lens_model, scene, launches_of, learning_rate):
             assert torch.isfinite(loss) and torch.isfinite(g).all()
             assert float(g.abs().max()) > 0 and torch.isfinite(params.refractive_index.grad)
             losses.append(float(loss))
-        launches = {k: v.launches for k, v in launches_of.items()}
+        return g
+
+    with _calls(cs, "tile_block_lists") as list_calls:
+        g, launches = cuda_lib.counted(three_steps)
     assert list_calls[0] == 0, list_calls
     launches["tile_block_lists"] = list_calls[0]
     assert losses[2] < losses[0], losses
@@ -745,17 +749,6 @@ def _fit_step_ms(fit_lens, sc, target, optimizer, learning_rate, steps=4) -> flo
     return (time.perf_counter() - t) / steps * 1e3
 
 
-def _counted(kernels, fn):
-    """Run fn with every launch count set to 0 just before and read just
-    after: (fn's result, {kernel: launches}).  kernels is
-    `records.launch_counts()`, whose counts `records.counted` reads."""
-    from cbtr_tpu_torch.benchmarks import records
-
-    for counted in kernels.values():
-        counted.launches = 0
-    return records.counted(fn)
-
-
 def _first_chunks(render, chunks: int):
     """The rays `render()` hands the winner search in the first chunk of
     each of its two refractions (captured at `intersect._winner_chunk`):
@@ -805,7 +798,7 @@ def _ordered_bits(x):
     return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
 
 
-def _emitter_phase(dev, card, kernels) -> dict:
+def _emitter_phase(dev, card) -> dict:
     """Phase l's emitter kernel (csrc/emitter.cu) at the emitter cell's
     shape, 16,777,216 rays of `benchmarks/emitter4k.device_emitter()` (64
     belts, seed 7): `synthesize` against its plain version
@@ -823,7 +816,7 @@ def _emitter_phase(dev, card, kernels) -> dict:
     from cbtr_tpu_torch.benchmarks import emitter4k
     from cbtr_tpu_torch.harness import kernel_ab
     from cbtr_tpu_torch.models import robot_lens_scene
-    from cbtr_tpu_torch.ops import cuda_emitter
+    from cbtr_tpu_torch.ops import cuda_emitter, cuda_lib
     from cbtr_tpu_torch.parallel.multihost import multihost_mesh, render_multihost_emitter
     from cbtr_tpu_torch.render import emitters
 
@@ -849,8 +842,8 @@ def _emitter_phase(dev, card, kernels) -> dict:
         assert differ[0] == 0 and differ[2] == 0 and len(counts) <= 2, (label, differ, counts)
         return differ, counts
 
-    (got, launches), k_peak = peak_of(lambda: _counted(kernels,
-                                                        lambda: emitters.synthesize(em, idx)))
+    (got, launches), k_peak = peak_of(lambda: cuda_lib.counted(
+        lambda: emitters.synthesize(em, idx)))
     assert launches["emitter"] == 1 and sum(launches.values()) == 1, launches
     want, p_peak = peak_of(lambda: emitters.synthesize_reference(em, idx))
     whole = held(got, want, f"{n} rays, seed {em.seed}")
@@ -878,7 +871,7 @@ def _emitter_phase(dev, card, kernels) -> dict:
 
     sc = robot_lens_scene(res=1, device=dev)
     with torch.no_grad():
-        _, render_launches = _counted(kernels, lambda: render_multihost_emitter(
+        _, render_launches = cuda_lib.counted(lambda: render_multihost_emitter(
             multihost_mesh(), sc.patches, sc.refractive_index, em, sc.screen_plane,
             resolution=256, chunk_size=1 << 20))
     assert render_launches["emitter"] == 1, render_launches
@@ -892,7 +885,7 @@ def _emitter_phase(dev, card, kernels) -> dict:
             "plain_peak_bytes": p_peak, "differ": whole[0], "direction_ulps": whole[1]}
 
 
-def _design_phase(dev, card, kernels):
+def _design_phase(dev, card):
     """Phase m: the design configuration of benchmarks/design_lens.py's full
     run (DESIGN_r05.json): the sphere 15 x 7 at LENS_CENTER (107 vertices,
     630 patches: K1), 262,144 cone-lattice rays of 13 degrees, a 32^2 image
@@ -906,6 +899,7 @@ def _design_phase(dev, card, kernels):
     from cbtr_tpu_torch.harness import preprocess
     from cbtr_tpu_torch.mesh.core import make_unit_sphere
     from cbtr_tpu_torch.models import design, scenes
+    from cbtr_tpu_torch.ops import cuda_lib
 
     lamp = preprocess(make_unit_sphere(15, 7))
     lamp.translate(scenes.LENS_CENTER)
@@ -998,7 +992,7 @@ def _design_phase(dev, card, kernels):
 
     step = design.make_design_step(topo, screen, target, resolution=res, extent=extent)
     opt = torch.optim.Adam(p0.parameters(), lr=5e-4)
-    _, step_launches = _counted(kernels, lambda: step(p0, opt, start, direction))
+    _, step_launches = cuda_lib.counted(lambda: step(p0, opt, start, direction))
     # the tables once a step (both refractions share them), one ray pack a pass
     assert step_launches == {"sweep_select": 2, "winner": 0, "sweep_codes": 0,
                              "fma_chains": 0, "tables": 1, "pack_rays": 2,
@@ -1009,7 +1003,7 @@ def _design_phase(dev, card, kernels):
     n_steps = sum(n for _, n in stages)
     torch.cuda.synchronize()
     t = time.perf_counter()
-    (best, _, losses), fit_launches = _counted(kernels, lambda: design.fit_design(
+    (best, _, losses), fit_launches = cuda_lib.counted(lambda: design.fit_design(
         lamp, target, start, direction, screen, stages=stages, resolution=res,
         extent=extent, device=dev))
     torch.cuda.synchronize()
@@ -1036,7 +1030,7 @@ def _design_phase(dev, card, kernels):
             "cone": (start, direction)}
 
 
-def _parallel_phase(dev, card, kernels, scene, refined, em, cone):
+def _parallel_phase(dev, card, scene, refined, em, cone):
     """Phase n, inside a one-rank NCCL group: the multihost renders and steps
     against the single-process ones, the patch-sharded intersection (K3)
     against K1 and K2, the ('rays', 'patches') train step, entry and
@@ -1048,6 +1042,7 @@ def _parallel_phase(dev, card, kernels, scene, refined, em, cone):
     from cbtr_tpu_torch import entry
     from cbtr_tpu_torch.models import lens_model, scene_ortho_grid
     from cbtr_tpu_torch.ops import cuda_codes as cc
+    from cbtr_tpu_torch.ops import cuda_lib
     from cbtr_tpu_torch.ops import intersect as ix
     from cbtr_tpu_torch.parallel import multihost as mh
     from cbtr_tpu_torch.parallel import sharding
@@ -1133,7 +1128,7 @@ def _parallel_phase(dev, card, kernels, scene, refined, em, cone):
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(dev)
         with torch.no_grad():
-            hit, launches = _counted(kernels, lambda: intersect_rays_patch_sharded(
+            hit, launches = cuda_lib.counted(lambda: intersect_rays_patch_sharded(
                 p, s, d, mesh2, ray_axis="rays"))
         torch.cuda.synchronize()
         peak = torch.cuda.max_memory_allocated(dev)
@@ -1142,7 +1137,7 @@ def _parallel_phase(dev, card, kernels, scene, refined, em, cone):
                             "segment_sum": 0, "recompute_forward": 1,
                             "recompute_backward": 0, "emitter": 0}, (name, launches)
         with torch.no_grad():
-            want, direct = _counted(kernels, lambda: ix.intersect_rays(p, s, d))
+            want, direct = cuda_lib.counted(lambda: ix.intersect_rays(p, s, d))
         ok, ok_w = hit.what == ix.WHAT_INTERSECT, want.what == ix.WHAT_INTERSECT
         differ = int(((ok != ok_w) | (ok & ok_w & (hit.patch != want.patch))).sum())
         _, rejects = ix.recompute_winner(p, s[:4096], d[:4096], ok[:4096], hit.patch[:4096],
@@ -1185,7 +1180,7 @@ def _parallel_phase(dev, card, kernels, scene, refined, em, cone):
             params, loss = step(params, start, direction)
             pp_losses.append(float(loss))
 
-    _, pp_launches = _counted(kernels, three_steps)
+    _, pp_launches = cuda_lib.counted(three_steps)
     assert pp_launches == {"sweep_select": 0, "winner": 0, "sweep_codes": 6,
                            "fma_chains": 0, "tables": 6, "pack_rays": 6,
                            "segment_sum": 6, "recompute_forward": 6,
@@ -1239,7 +1234,7 @@ def _follow_keys(triples, num_patches: int):
     return (triples[:, 0] * num_patches + triples[:, 1]) * 3 + triples[:, 2]
 
 
-def _drivers_phase(dev, card, kernels, scene):
+def _drivers_phase(dev, card, scene):
     """Phase o: the native runtime against the NumPy path, followers_report
     on K3 at the headline against the twin's and the unculled sweep's
     follow triples, BASELINE config 1 against the f64 oracle on a ray
@@ -1256,6 +1251,7 @@ def _drivers_phase(dev, card, kernels, scene):
     from cbtr_tpu_torch.mesh.core import TriMesh
     from cbtr_tpu_torch.models import scenes, sphere_lens_scene
     from cbtr_tpu_torch.ops import cuda_codes as cc
+    from cbtr_tpu_torch.ops import cuda_lib
     from cbtr_tpu_torch.ops import intersect as ix
     from cbtr_tpu_torch.optics import REFRACT_INSIDE, REFRACT_OUTSIDE, refract_rays
     from cbtr_tpu_torch.render.render import render_lens_image, screen_hits
@@ -1296,8 +1292,8 @@ def _drivers_phase(dev, card, kernels, scene):
     torch.cuda.reset_peak_memory_stats(dev)
     base = torch.cuda.memory_allocated(dev)
     t = time.perf_counter()
-    report, fr_launches = _counted(
-        kernels, lambda: drivers.followers_report(patches, start, direction))
+    report, fr_launches = cuda_lib.counted(
+        lambda: drivers.followers_report(patches, start, direction))
     fr_s = [time.perf_counter() - t]
     fr_peak = torch.cuda.max_memory_allocated(dev) - base
     assert fr_launches == {"sweep_select": 0, "winner": 0, "sweep_codes": 1,
@@ -1351,7 +1347,7 @@ def _drivers_phase(dev, card, kernels, scene):
         keep = (st1 == REFRACT_INSIDE) & (st2 == REFRACT_OUTSIDE) & on
         return hit2d.cpu().numpy(), keep.cpu().numpy(), img
 
-    (hit2d, keep, img), par_launches = _counted(kernels, parity_forward)
+    (hit2d, keep, img), par_launches = cuda_lib.counted(parity_forward)
     assert par_launches["sweep_select"] == 4 and par_launches["winner"] == 0, par_launches
     assert torch.isfinite(img).all() and float(img.sum()) > 1000.0
     idx = np.sort(np.random.default_rng(0).choice(len(keep), 1024, replace=False))
@@ -1425,10 +1421,10 @@ def _drivers_phase(dev, card, kernels, scene):
             "dense_differ": len(differ)}
 
 
-def _scale_phase(dev, card, kernels):
+def _scale_phase(dev, card):
     """Phase p: the artifact scripts' 4K paths at 16,777,216 rays, each
-    driven through its script's entry point with every launch count set to
-    0 just before and read just after (render4k, train4k, emitter4k:
+    driven through its script's entry point with its launches counted
+    (`cuda_lib.counted`; render4k, train4k, emitter4k:
     warm-ups and repeats included; their records give the launches of one
     render or step), then the K1 and K2 time decomposition (cull_probe) and
     K1 at blocks of 16 and 32.
@@ -1437,6 +1433,7 @@ def _scale_phase(dev, card, kernels):
 
     from cbtr_tpu_torch.benchmarks import cull_probe, emitter4k, render4k, train4k
     from cbtr_tpu_torch.models import robot_lens_scene, scene_ortho_grid
+    from cbtr_tpu_torch.ops import cuda_lib
     from cbtr_tpu_torch.ops import cuda_sweep as cs
     from cbtr_tpu_torch.parallel.multihost import (
         multihost_mesh,
@@ -1447,7 +1444,7 @@ def _scale_phase(dev, card, kernels):
     n = 4096 * 4096
     path_launches = {}
     t = time.perf_counter()
-    render, path_launches["render4k"] = _counted(kernels, lambda: render4k.run_gpu(device=dev))
+    render, path_launches["render4k"] = cuda_lib.counted(lambda: render4k.run_gpu(device=dev))
     assert render["rays"] == n and render["image_sum"] > 0, render
     # the scatter splat is a fixed-order segment sum: two renders are equal
     assert render["deterministic"] and render["image_max_abs_diff_between_calls_rel"] == 0.0, \
@@ -1462,7 +1459,7 @@ def _scale_phase(dev, card, kernels):
           f"{render['launches_per_render']}, in the script {path_launches['render4k']}",
           flush=True)
 
-    train, path_launches["train4k"] = _counted(kernels, lambda: train4k.run_gpu(device=dev))
+    train, path_launches["train4k"] = cuda_lib.counted(lambda: train4k.run_gpu(device=dev))
     assert train["rays"] == n and train["grad_cp_norm"] > 0, train
     assert train["deterministic"] and train["grad_cp_max_abs_diff_between_calls_rel"] == 0.0 \
         and train["loss_diff_between_calls"] == 0.0, train
@@ -1476,7 +1473,7 @@ def _scale_phase(dev, card, kernels):
           f"{train['launches_per_step']}, in the script {path_launches['train4k']}",
           flush=True)
 
-    em, path_launches["emitter4k"] = _counted(kernels, lambda: emitter4k.run(
+    em, path_launches["emitter4k"] = cuda_lib.counted(lambda: emitter4k.run(
         host_path_n=1 << 22, device=dev))
     assert em["flux_per_ray_agreement"] < emitter4k.FLUX_BAR, em
     assert em["train_step"]["grad_cp_norm"] > 0, em
@@ -1518,7 +1515,7 @@ def _scale_phase(dev, card, kernels):
                            (em["train_step"]["launches_per_step"], per_em_step),
                            (em["host_path"]["launches_per_render"], per_host)):
         assert launches == want, (launches, want)
-    # the counts set to 0 just before each script: render4k renders three
+    # the launches counted around each script: render4k renders three
     # times (warm-up, timed, row-major), train4k steps twice, emitter4k
     # renders three times on the device and twice on the host path and steps
     # twice
@@ -1528,7 +1525,7 @@ def _scale_phase(dev, card, kernels):
                           for k, v in per_em.items()}}
     assert path_launches == want, (path_launches, want)
     print(f"[p] the 4K paths took {time.perf_counter() - t:.1f} s; launches in each "
-          f"script (counts set to 0 just before it) {path_launches}", flush=True)
+          f"script {path_launches}", flush=True)
 
     # K1 against its plain version at the 4K paths' launch shape: the first
     # chunk of each refraction of the grid render and of the emitter render
@@ -1741,12 +1738,20 @@ def _segment_phase(dev, card, scene, win):
     return rows
 
 
-def _sweep_build(cs, build_log: str) -> dict:
+def _sweep_build(cs, ptxas: dict, build_log: str) -> dict:
     """Phase 0's line for every instantiation of K1-K3 (the mode, and K1's
-    half_gate): ptxas's registers, stack and spills (`cuda_sweep.ptxas_summary`
-    of the build's output) and, for K1 and K2, the CTAs an SM holds at the
-    headline's and the refined lens's tables.  Returns {instantiation: numbers}."""
-    out = cs.ptxas_summary(build_log)
+    half_gate): ptxas's registers, stack, spills and shared memory
+    (`cuda_lib.ptxas_summary` of the build's output; each instantiation of a
+    source built now must have its registers) and, for K1 and K2, the CTAs
+    an SM holds at the headline's and the refined lens's tables.  Returns
+    {instantiation: numbers}."""
+    for stem in ("sweep_select", "winner", "sweep_codes"):
+        if f"== {stem}.cu" in build_log:
+            names = [f"{stem}_kernel<{m}{h}>" for m in range(4)
+                     for h in ((", false", ", true") if stem == "sweep_select" else ("",))]
+            assert all("registers" in ptxas.get(n, {}) for n in names), (stem, sorted(ptxas))
+    out = {name: row for name, row in ptxas.items()
+           if name.startswith(("sweep_select_kernel<", "winner_kernel<", "sweep_codes_kernel<"))}
     for mode in range(4):
         for half in (False, True):
             name = f"sweep_select_kernel<{mode}, {'true' if half else 'false'}>"
@@ -1759,16 +1764,15 @@ def _sweep_build(cs, build_log: str) -> dict:
     return out
 
 
-def _recompute_build(build_log: str) -> dict:
+def _recompute_build(ptxas: dict) -> dict:
     """Phase 0's line for each recompute kernel: ptxas's registers, stack
-    frame, spills and shared memory (`cuda_recompute.ptxas_summary` of the
+    frame, spills and shared memory (`cuda_lib.ptxas_summary` of the
     build's output) and the device's answer for the build
     (`cuda_recompute.attributes`: the registers, local and shared bytes, the
     blocks of a launch an SM holds and the occupancy that follows, of 64
     warps an SM).  Returns {kind: numbers}, kind "forward" or "backward"."""
     from cbtr_tpu_torch.ops import cuda_recompute as cr
 
-    ptxas = cr.ptxas_summary(build_log)
     out = {}
     for kind in ("forward", "backward"):
         name = f"recompute_{kind}_kernel"
@@ -2107,11 +2111,11 @@ def main(argv=None) -> int:
     )
     from cbtr_tpu_torch import native
     from cbtr_tpu_torch.benchmarks import fma_peak as fp
-    from cbtr_tpu_torch.benchmarks import records
     from cbtr_tpu_torch.harness import kernel_ab
     from cbtr_tpu_torch.harness.determinism import divergent_sites
     from cbtr_tpu_torch.ops.cuda_segment import gather_rows
     from cbtr_tpu_torch.ops import cuda_codes as cc
+    from cbtr_tpu_torch.ops import cuda_lib
     from cbtr_tpu_torch.ops import cuda_sweep as cs
     from cbtr_tpu_torch.ops import cuda_tables as ct
     from cbtr_tpu_torch.ops import cuda_winner as cw
@@ -2122,13 +2126,12 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     card = _card()
-    kernels = records.launch_counts()
     table_lenses = {}       # name -> patches, for phase t
     t_script = time.perf_counter()
 
     # ---- 0: device, versions, kernel build -------------------------------
     t = time.perf_counter()
-    build_log = cs.build_library()
+    build_log = cuda_lib.build_library()
     build_s = time.perf_counter() - t
     print(f"[0] card: {card} | torch {torch.__version__} cuda {torch.version.cuda} "
           f"| python {sys.version.split()[0]} | K1 + K2 + K3 + K4 + tables + segment_sum + "
@@ -2140,8 +2143,9 @@ def main(argv=None) -> int:
     print(f"[0] CTAs per SM: K1 {cs.occupancy('sweep_select', 512)} (P_pad 512), K2 "
           f"{cs.occupancy('winner', 1920)} (P_pad 1920), "
           f"{cs.occupancy('winner', 16256)} (P_pad 16,256)", flush=True)
-    sweep_build = _sweep_build(cs, build_log)
-    rec_build = _recompute_build(build_log)
+    ptxas = cuda_lib.ptxas_summary(build_log)
+    sweep_build = _sweep_build(cs, ptxas, build_log)
+    rec_build = _recompute_build(ptxas)
     # the native preprocessing runtime, before any scene: every lens below
     # starts from the mesh the JAX package's default preprocess gives
     fresh = not os.path.exists(native.LIB_PATH)
@@ -2200,9 +2204,8 @@ def main(argv=None) -> int:
           f"K2 win {int(k2_win[0])}", flush=True)
 
     # ---- 3: render on K1 and on the plain twin ---------------------------
-    before = cs.sweep_select.launches
-    img = _render(scene)
-    launched = cs.sweep_select.launches - before
+    img, launched = cuda_lib.counted(lambda: _render(scene))
+    launched = launched["sweep_select"]
     img_plain = _render(scene, backend="plain")
     torch.cuda.synchronize()
     assert launched == 2, launched
@@ -2216,7 +2219,7 @@ def main(argv=None) -> int:
     # ---- 4: the headline path: three SGD steps ---------------------------
     # The loss scales with the square of the rays per pixel, so the step size
     # is the one that descends at 64^2 rays (1e-3) scaled by (64/512)^4.
-    losses, g_max, g_n, main_launches = _train(lens_model, scene, kernels, 2.5e-7)
+    losses, g_max, g_n, main_launches = _train(lens_model, scene, 2.5e-7)
     # the recompute's gather backward: one segment sum a refraction a step
     # the tables once a step (both refractions share them), one ray pack a pass
     assert main_launches == {"sweep_select": 6, "winner": 0, "sweep_codes": 0,
@@ -2295,10 +2298,7 @@ def main(argv=None) -> int:
     assert (rp.num_patches, rs.shape[0]) == (1800, 262144), rp.num_patches
     host_s = time.perf_counter() - t
     table_lenses["refined"] = rp
-    for counted in kernels.values():
-        counted.launches = 0
-    ix.intersect_rays(rp, rs[:4096], rd[:4096])
-    routed = {k: v.launches for k, v in kernels.items()}
+    _, routed = cuda_lib.counted(lambda: ix.intersect_rays(rp, rs[:4096], rd[:4096]))
     assert routed == {"sweep_select": 0, "winner": 1, "sweep_codes": 0,
                       "fma_chains": 0, "tables": 1, "pack_rays": 1, "segment_sum": 0,
                       "recompute_forward": 1, "recompute_backward": 0, "emitter": 0}, routed
@@ -2320,7 +2320,7 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     assert torch.isfinite(img).all() and float(img.sum()) > 1000.0
     torch.testing.assert_close(img, img_plain, rtol=1e-3, atol=1e-4)
-    losses, g_max, g_n, large_launches = _train(lens_model, refined, kernels, 2.5e-7)
+    losses, g_max, g_n, large_launches = _train(lens_model, refined, 2.5e-7)
     assert large_launches == {"sweep_select": 0, "winner": 6, "sweep_codes": 0,
                               "fma_chains": 0, "tables": 3, "pack_rays": 6, "segment_sum": 6,
                               "recompute_forward": 6, "recompute_backward": 6, "emitter": 0,
@@ -2454,9 +2454,9 @@ def main(argv=None) -> int:
     # ---- t: the table kernel and the ray pack against the plain versions ----------
     table_lenses["ellipsoid 15x5"] = ellipsoid_lens_scene(res=16, device=dev).patches
     assert len(table_lenses) == 7, sorted(table_lenses)
-    before = ct.build_tables.launches
-    tables_err = max(_check_tables(ct, name, lens) for name, lens in table_lenses.items())
-    assert ct.build_tables.launches - before == 3 * len(table_lenses)
+    tables_err, built = cuda_lib.counted(lambda: max(
+        _check_tables(ct, name, lens) for name, lens in table_lenses.items()))
+    assert built["tables"] == 3 * len(table_lenses), built
     print(f"[t] table kernel vs plain versions (patch table, bounds at block 16 and 32, "
           f"neighbours, K2's clamped at block 16; one workspace a build): torch.equal on "
           f"{', '.join(f'{n} (P = {q.num_patches})' for n, q in table_lenses.items())}",
@@ -2677,7 +2677,7 @@ def main(argv=None) -> int:
     sgd_lr, adam_lr = 2.5e-7, 1e-4     # phase 4's step size; Adam moves by lr
     with tempfile.TemporaryDirectory() as tmp:
         full = os.path.join(tmp, "full")
-        (p_full, l_full), fit_launches = _counted(kernels, lambda: fit_lens(
+        (p_full, l_full), fit_launches = cuda_lib.counted(lambda: fit_lens(
             scene, target, 6, checkpoint_dir=full, checkpoint_every=2,
             learning_rate=sgd_lr))
         assert fit_launches == {"sweep_select": 12, "winner": 0, "sweep_codes": 0,
@@ -2744,7 +2744,7 @@ def main(argv=None) -> int:
           f"{fit_ms['sgd_deterministic']:.3f} ms", flush=True)
 
     # ---- k: the large-P fit ---------------------------------------------------
-    (_, l_big), big_launches = _counted(kernels, lambda: fit_lens(
+    (_, l_big), big_launches = cuda_lib.counted(lambda: fit_lens(
         refined, target, 3, learning_rate=sgd_lr))
     assert big_launches == {"sweep_select": 0, "winner": 6, "sweep_codes": 0,
                             "fma_chains": 0, "tables": 3, "pack_rays": 6,
@@ -2793,7 +2793,7 @@ def main(argv=None) -> int:
                                            np.asarray(origin, np.float32),
                                            scene.screen_plane)
 
-    img_dev, em_launches = _counted(kernels, _emit_device)
+    img_dev, em_launches = cuda_lib.counted(_emit_device)
     img_host = _emit_host()
     assert em_launches["sweep_select"] == 2 and em_launches["winner"] == 0 and \
         em_launches["emitter"] == 1, em_launches
@@ -2812,7 +2812,7 @@ def main(argv=None) -> int:
           f"(host sampling, sort, upload) {em_ms['host']:.3f} ms", flush=True)
     del es, ed, ew, img_dev, img_host
     torch.cuda.empty_cache()
-    emitter_out = _emitter_phase(dev, card, kernels)
+    emitter_out = _emitter_phase(dev, card)
     torch.cuda.empty_cache()
 
     es, ed = emitter_rays(n_em, belts=16, seed=1, origin=origin, device=dev)
@@ -2839,7 +2839,7 @@ def main(argv=None) -> int:
     # asserted; every fit runs twice and must repeat its losses exactly (the
     # backward's sums are fixed-order)
     emit_lr, l_over = 5e-5, {lr: emitter_fit(lr) for lr in (2.5e-4, 1e-4)}
-    l_emit, emit_launches = _counted(kernels, lambda: emitter_fit(emit_lr))
+    l_emit, emit_launches = cuda_lib.counted(lambda: emitter_fit(emit_lr))
     repeats = {lr: emitter_fit(lr) for lr in (emit_lr, 1e-4)}
     assert all(np.isfinite(l_emit)) and l_emit[-1] < l_emit[0], l_emit
     assert emit_launches["sweep_select"] == 6 and emit_launches["segment_sum"] == 6, \
@@ -2882,7 +2882,7 @@ def main(argv=None) -> int:
     del big_idx
     torch.cuda.empty_cache()
 
-    (shade, depth, hit), normal_launches = _counted(kernels, lambda: rd.render_surface_normals(
+    (shade, depth, hit), normal_launches = cuda_lib.counted(lambda: rd.render_surface_normals(
         patches, start, direction, light_dir=(1.0, 0.0, 0.0)))
     plain = rd.render_surface_normals(patches, start, direction, (1.0, 0.0, 0.0),
                                       backend="plain")
@@ -2901,7 +2901,7 @@ def main(argv=None) -> int:
     # ---- m: mesh-vertex lens design ------------------------------------------------
     torch.cuda.empty_cache()
     t = time.perf_counter()
-    design_out = _design_phase(dev, card, kernels)
+    design_out = _design_phase(dev, card)
     print(f"[m] took {time.perf_counter() - t:.1f} s", flush=True)
 
     # ---- n: the parallel layer on a one-rank NCCL group ----------------------------
@@ -2916,7 +2916,7 @@ def main(argv=None) -> int:
                                 world_size=1, rank=0,
                                 timeout=datetime.timedelta(seconds=60))
         try:
-            par_out = _parallel_phase(dev, card, kernels, scene, refined, em,
+            par_out = _parallel_phase(dev, card, scene, refined, em,
                                       design_out["cone"])
         finally:
             dist.destroy_process_group()
@@ -2926,13 +2926,13 @@ def main(argv=None) -> int:
     # ---- o: native runtime, followers_report on K3, image parity, dense path, drivers ---
     torch.cuda.empty_cache()
     t = time.perf_counter()
-    drivers_out = _drivers_phase(dev, card, kernels, scene)
+    drivers_out = _drivers_phase(dev, card, scene)
     print(f"[o] took {time.perf_counter() - t:.1f} s", flush=True)
 
     # ---- p: the 4K paths, the K1/K2 decomposition, the block size -----------------
     torch.cuda.empty_cache()
     t = time.perf_counter()
-    scale_out = _scale_phase(dev, card, kernels)
+    scale_out = _scale_phase(dev, card)
     print(f"[p] took {time.perf_counter() - t:.1f} s", flush=True)
 
     # ---- s: the segment-sum kernel against its plain version ------------------------
@@ -2948,7 +2948,7 @@ def main(argv=None) -> int:
     print(f"[u] took {time.perf_counter() - t:.1f} s", flush=True)
 
     # ---- r (the summary; the phase ran after phase t) --------------------------------
-    # each path's recompute launches (counts set to 0 just before each path):
+    # each path's recompute launches (counted around each path):
     # a forward and a backward a refraction a step, a forward a chunk a
     # refraction a render, and in a step a backward a chunk too (no chunk is
     # checkpointed on the kernels, so its forward runs once)
@@ -2979,8 +2979,7 @@ def main(argv=None) -> int:
         print("[i] no --against DIR: the comparison with another checkout is not run",
               flush=True)
 
-    # the table kernel's launches on every path (counts set to 0 just before
-    # each): once a lens a trace, whatever its chunks
+    # the table kernel's launches on every path (counted around each): once a lens a trace, whatever its chunks
     table_launches = {
         "train step": main_launches["tables"] / 3,
         "fit step": fit_launches["tables"] / 6,

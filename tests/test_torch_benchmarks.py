@@ -248,21 +248,22 @@ def test_deterministic_mode_is_scoped_to_the_run(robot):
 
 
 def test_records_count_launches_without_resetting(tmp_path, capsys):
-    """`records.counted` reports the launches its call made and leaves the
+    """`cuda_lib.counted` reports the launches its call made and leaves the
     counts running, so a caller counting around it sees every launch;
     `emit` writes the record (with its label) and prints it last."""
-    from cbtr_tpu_torch.ops import cuda_sweep as cs
+    from cbtr_tpu_torch.ops import cuda_lib
 
-    cs.sweep_select.launches = 5
+    cuda_lib.add_launches({"sweep_select": 5})
+    before = cuda_lib.launch_counts()["sweep_select"]
 
     def launch_twice():
-        cs.sweep_select.launches += 2
+        cuda_lib.add_launches({"sweep_select": 2})
         return "done"
 
-    out, launches = records.counted(launch_twice)
+    out, launches = cuda_lib.counted(launch_twice)
     assert out == "done" and launches["sweep_select"] == 2 and launches["winner"] == 0
-    assert cs.sweep_select.launches == 7
-    cs.sweep_select.launches = 0
+    assert cuda_lib.launch_counts()["sweep_select"] == before + 2
+    cuda_lib.add_launches({"sweep_select": -7})
     rec = records.emit({"x": 1}, str(tmp_path / "r.json"), "L")
     assert json.loads((tmp_path / "r.json").read_text()) == rec == {"x": 1, "label": "L"}
     assert json.loads(capsys.readouterr().out.strip().splitlines()[-1]) == rec

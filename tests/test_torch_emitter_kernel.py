@@ -27,7 +27,7 @@ import numpy as np
 import pytest
 import torch
 
-from cbtr_tpu_torch.ops import cuda_emitter
+from cbtr_tpu_torch.ops import cuda_emitter, cuda_lib
 from cbtr_tpu_torch.render import emitters
 
 torch.set_num_threads(2)
@@ -143,7 +143,7 @@ def _kernel_rays(lib, em, idx):
     outputs = (torch.full((n, 3), float("nan")), torch.full((n, 3), float("nan")),
                torch.full((n,), float("nan")))
     rc = lib.cbtr_emitter(*cuda_emitter.entry_args(tables, idx, em.seed, em.origin,
-                                                   em.n_rays, outputs, None))
+                                                   em.n_rays, outputs), None)
     assert rc == 0
     return outputs
 
@@ -269,7 +269,7 @@ def test_wrapper_raises_on_what_the_kernel_does_not_take():
         cuda_emitter.launch(bad, idx, em.seed, em.origin, em.n_rays)
     with pytest.raises(ValueError, match="CUDA"):
         cuda_emitter.launch(tables, idx, em.seed, em.origin, em.n_rays)
-    assert cuda_emitter.launch.launches == 0
+    assert cuda_lib.launch_counts()["emitter"] == 0 and "emitter" not in cuda_lib.loaded()
 
 
 def test_cpu_indices_take_the_plain_version_without_launching(monkeypatch):

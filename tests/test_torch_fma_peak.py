@@ -20,7 +20,7 @@ import torch
 from jax.experimental.pallas import tpu as pltpu
 
 from cbtr_tpu_torch.benchmarks import fma_peak as fp
-from cbtr_tpu_torch.ops import cuda_sweep as cs
+from cbtr_tpu_torch.ops import cuda_lib
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "benchmarks"))
@@ -78,14 +78,14 @@ def test_check_lengths_tell_a_wrong_kernel_apart():
 
 def test_cpu_wrapper_runs_the_twin_and_launch_refuses_cpu():
     a = 0.5 + 0.2 * torch.rand(300, generator=torch.Generator().manual_seed(1))
-    before = fp.fma_chains.launches
+    before = cuda_lib.launch_counts()["fma_chains"]
     assert torch.equal(fp.fma_chains(a, 16), fp.fma_chains_reference(a, 16))
-    assert fp.fma_chains.launches == before and "fma_peak" not in cs._libraries
+    assert cuda_lib.launch_counts()["fma_chains"] == before and "fma_peak" not in cuda_lib.loaded()
     with pytest.raises(ValueError, match="CUDA"):
         fp.launch(a, 16)
     with pytest.raises(ValueError):
         fp.fma_ceiling("cpu")
-    assert "fma_peak" not in cs._libraries
+    assert "fma_peak" not in cuda_lib.loaded()
 
 
 def test_peak_rejects_runs_above_the_ceiling():

@@ -29,6 +29,7 @@ from cbtr_tpu.ops import pallas_sweep as jax_ps
 from cbtr_tpu_torch.config import DEFAULT as CFG
 from cbtr_tpu_torch.convert import patches_from_numpy
 from cbtr_tpu_torch.ops import cuda_codes as cc
+from cbtr_tpu_torch.ops import cuda_lib
 from cbtr_tpu_torch.ops import cuda_sweep as cs
 from cbtr_tpu_torch.ops import cuda_winner as cw
 from cbtr_tpu_torch.ops import intersect as ix
@@ -132,16 +133,25 @@ def test_half_gate_refusals(cases):
         cs.occupancy("winner", 512, half_gate=True)
 
 
-class _StubLibrary:
-    """A kernel library that records each entry point's arguments."""
+class _StubEntry:
+    """A kernel's C entry point that records its arguments."""
 
-    def __init__(self, stem, argtypes):
-        self.stem, self.argtypes, self.calls = stem, argtypes, []
-        setattr(self, f"cbtr_{stem}", self._record)
+    def __init__(self):
+        self.argtypes, self.restype, self.calls = None, None, []
 
-    def _record(self, *args):
+    def __call__(self, *args):
         self.calls.append(args)
         return 0
+
+
+class _StubLibrary:
+    """A kernel library whose every entry point records its arguments."""
+
+    def __init__(self):
+        self.entries = {}
+
+    def __getattr__(self, symbol):
+        return self.entries.setdefault(symbol, _StubEntry())
 
 
 @pytest.fixture
@@ -149,9 +159,8 @@ def stubbed(monkeypatch):
     """Launches on CPU tensors: the device checks pass, the library records."""
     libs = {}
 
-    def load_library(stem, argtypes):
-        libs[stem] = libs.get(stem) or _StubLibrary(stem, argtypes)
-        return libs[stem]
+    def library(stem):
+        return libs.setdefault(stem, _StubLibrary())
 
     class _Stream:
         cuda_stream = 1234
@@ -160,7 +169,9 @@ def stubbed(monkeypatch):
         inputs.rays_t.shape[1] // cs.TILE_R, inputs.patch_t.shape[0]))
     monkeypatch.setattr(cc, "check_inputs", lambda inputs: (
         inputs.rays_t.shape[1] // cs.TILE_R, inputs.patch_t.shape[0]))
-    monkeypatch.setattr(cs, "load_library", load_library)
+    monkeypatch.setattr(cuda_lib, "library", library)
+    # the stubs' launches are counted apart from the process's
+    monkeypatch.setattr(cuda_lib, "_launches", dict.fromkeys(cuda_lib.KERNELS, 0))
     monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
     monkeypatch.setattr(torch.cuda, "current_stream", lambda device: _Stream())
     saved = CFG.fast_newton, CFG.bf16_sweep
@@ -184,9 +195,9 @@ def test_launch_passes_the_mode(cases, stubbed, kernel, mode):
         else:
             cs.launch(cs.prepare_inputs(port_p, s, dd), half_gate=kernel.endswith("gate"))
     stem = {"K1": "sweep_select", "K2": "winner", "K3": "sweep_codes"}[kernel.split()[0]]
-    lib = stubbed[stem]
-    (args,) = lib.calls
-    assert len(args) == len(lib.argtypes)
+    entry = getattr(stubbed[stem], f"cbtr_{stem}")
+    (args,) = entry.calls
+    assert len(args) == len(entry.argtypes)
     assert args[-1] == 1234
     code = ix.MODES[mode].code
     if stem == "sweep_select":

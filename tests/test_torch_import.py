@@ -12,15 +12,16 @@ _SCRIPT = r"""
 import os, shutil, sys
 os.environ["PATH"] = ""          # no nvcc (nor anything else) on PATH
 import cbtr_tpu_torch
-import cbtr_tpu_torch.ops.cuda_sweep as cs
-import cbtr_tpu_torch.ops.cuda_winner as cw
-import cbtr_tpu_torch.ops.cuda_codes as cc
-import cbtr_tpu_torch.ops.cuda_tables as ct
-import cbtr_tpu_torch.ops.cuda_segment as sg
-import cbtr_tpu_torch.ops.cuda_recompute as cr
-import cbtr_tpu_torch.ops.cuda_emitter as ce
+import cbtr_tpu_torch.ops.cuda_lib as cl
+import cbtr_tpu_torch.ops.cuda_sweep
+import cbtr_tpu_torch.ops.cuda_winner
+import cbtr_tpu_torch.ops.cuda_codes
+import cbtr_tpu_torch.ops.cuda_tables
+import cbtr_tpu_torch.ops.cuda_segment
+import cbtr_tpu_torch.ops.cuda_recompute
+import cbtr_tpu_torch.ops.cuda_emitter
 import cbtr_tpu_torch.harness.determinism
-import cbtr_tpu_torch.benchmarks.fma_peak as fp
+import cbtr_tpu_torch.benchmarks.fma_peak
 import cbtr_tpu_torch.bench
 import cbtr_tpu_torch.harness.reference_tracer
 import cbtr_tpu_torch.harness.kernel_ab
@@ -80,12 +81,8 @@ from cbtr_tpu_torch.utils.prng import prng_key, fold_in, split, uniform
 assert shutil.which("nvcc") is None
 assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
 assert not any(m == "cbtr_tpu" or m.startswith("cbtr_tpu.") for m in sys.modules)
-assert cs._libraries == {}       # no kernel library built or loaded
-assert cs.sweep_select.launches == 0 and cw.sweep_winner.launches == 0
-assert cc.sweep_codes_cuda.launches == 0 and fp.fma_chains.launches == 0
-assert ct.build_tables.launches == 0 and sg.segment_sum.launches == 0
-assert ct.pack_rays.launches == 0 and ce.launch.launches == 0
-assert all(f.launches == 0 for f in cr.COUNTED.values())
+assert cl.loaded() == set()      # no kernel library built or loaded
+assert cl.launch_counts() == dict.fromkeys(cl.KERNELS, 0) and len(cl.KERNELS) == 10
 assert not dist.is_initialized()  # importing the parallel layer starts no group
 assert nat._lib is None and nat.build_error() is None   # no g++ run, nothing loaded
 if os.path.exists("/proc/self/maps"):
@@ -113,6 +110,7 @@ def test_cpu_wrapper_runs_the_twin_without_launching():
     from cbtr_tpu_torch.mesh.core import make_unit_sphere
     from cbtr_tpu_torch.harness import preprocess
     from cbtr_tpu_torch.bezier import build_from_trimesh
+    from cbtr_tpu_torch.ops import cuda_lib
     from cbtr_tpu_torch.ops import cuda_sweep as cs
 
     patches = build_from_trimesh(preprocess(make_unit_sphere(7, 3)), device="cpu")
@@ -120,11 +118,31 @@ def test_cpu_wrapper_runs_the_twin_without_launching():
     start = torch.randn(40, 3, generator=rng) * 0.1 - torch.tensor([3.0, 0, 0])
     direction = torch.nn.functional.normalize(
         torch.randn(40, 3, generator=rng) * 0.4 - start, dim=-1)
-    before = cs.sweep_select.launches
-    got = cs.sweep_select(patches, start, direction)
+    got, launches = cuda_lib.counted(lambda: cs.sweep_select(patches, start, direction))
     want = cs.sweep_select_reference(patches, start, direction)
-    assert cs.sweep_select.launches == before
-    assert "sweep_select" not in cs._libraries
+    assert launches["sweep_select"] == 0
+    assert "sweep_select" not in cuda_lib.loaded()
     for g, w in zip(got, want):
         assert torch.equal(g, w)
     assert got[0].sum() >= 10
+
+
+def test_entry_declares_argtypes_once_and_refuses_others(monkeypatch):
+    """A C entry point takes the argtypes of its first declaration; a later
+    one that names others raises instead of being dropped."""
+    import ctypes
+    from types import SimpleNamespace
+
+    import pytest
+
+    from cbtr_tpu_torch.ops import cuda_lib
+
+    fn = SimpleNamespace(argtypes=None, restype=None)
+    monkeypatch.setattr(cuda_lib, "library", lambda stem: SimpleNamespace(cbtr_stub=fn))
+    args = [ctypes.c_void_p, ctypes.c_int]
+    assert cuda_lib.entry("stub", "cbtr_stub", args) is fn
+    assert fn.argtypes == args and fn.restype is ctypes.c_int
+    assert cuda_lib.entry("stub", "cbtr_stub", list(args)) is fn
+    with pytest.raises(TypeError, match="cbtr_stub"):
+        cuda_lib.entry("stub", "cbtr_stub", [ctypes.c_void_p, ctypes.c_long])
+    assert fn.argtypes == args

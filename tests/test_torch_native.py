@@ -33,7 +33,7 @@ from cbtr_tpu_torch.harness import preprocess
 from cbtr_tpu_torch.mesh.core import TriMesh, make_ellipsoid, make_unit_sphere
 from cbtr_tpu_torch.models import scenes
 from cbtr_tpu_torch.ops import intersect as ix
-from cbtr_tpu_torch.ops.cuda_sweep import BUILD_DIR
+from cbtr_tpu_torch.ops.cuda_lib import BUILD_DIR
 
 from test_torch_scene import _assert_no_further_from_f64
 

@@ -46,6 +46,7 @@ from cbtr_tpu.models import scenes as jax_scenes
 from cbtr_tpu.ops import intersect as jix
 
 from cbtr_tpu_torch.convert import patches_from_numpy
+from cbtr_tpu_torch.ops import cuda_lib
 from cbtr_tpu_torch.ops import cuda_recompute as cr
 from cbtr_tpu_torch.ops import cuda_segment as sg
 from cbtr_tpu_torch.ops import cuda_sweep as cs
@@ -854,10 +855,7 @@ def _hold_to_the_plain_versions(lib, c):
         assert torch.equal(g, w), name
 
 
-def test_ptxas_summary():
-    """Phase 0 of chip_smoke reads each recompute kernel's registers, stack,
-    spills and shared memory from nvcc's -Xptxas -v output."""
-    log = """ptxas info    : 0 bytes gmem
+_RECOMPUTE_LOG = """ptxas info    : 0 bytes gmem
 ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_124recompute_forward_kernelEPKfPKx' for 'sm_90a'
 ptxas info    : Function properties for _ZN12_GLOBAL__N_124recompute_forward_kernelEPKfPKx
     0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
@@ -867,8 +865,58 @@ ptxas info    : Function properties for _ZN12_GLOBAL__N_125recompute_backward_ke
     144 bytes stack frame, 4 bytes spill stores, 8 bytes spill loads
 ptxas info    : Used 168 registers, 464 bytes cmem[0]
 """
-    assert cr.ptxas_summary(log) == {
+
+# K1's and K2's instantiations (the mode, and K1's half_gate, in the mangled
+# name), at global scope and in an anonymous namespace as csrc/ declares
+# them, and a device function, which has no registers of its own
+_SWEEP_LOG = """== sweep_select.cu
+ptxas info    : 0 bytes gmem
+ptxas info    : Function properties for _ZN12_GLOBAL__N_18cull_tileEPKfi
+    16 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Compiling entry function '_Z19sweep_select_kernelILi1ELb1EEvPKfS1_S1_PKiPfPiS5_S5_S5_iiiiiiffffi' for 'sm_90a'
+ptxas info    : Function properties for _Z19sweep_select_kernelILi1ELb1EEvPKfS1_S1_PKiPfPiS5_S5_S5_iiiiiiffffi
+    8 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 128 registers, used 1 barriers, 39936 bytes smem, 464 bytes cmem[0]
+ptxas info    : Compiling entry function '_Z19sweep_select_kernelILi0ELb0EEvPKfS1_S1_PKiPfPiS5_S5_S5_iiiiiiffffi' for 'sm_90a'
+ptxas info    : Function properties for _Z19sweep_select_kernelILi0ELb0EEvPKfS1_S1_PKiPfPiS5_S5_S5_iiiiiiffffi
+    0 bytes stack frame, 12 bytes spill stores, 16 bytes spill loads
+ptxas info    : Used 96 registers, 464 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_119sweep_select_kernelILi2ELb0EEEvPKfS2_S2_PKiPfPiS6_S6_S6_iiiiiiffffi' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_119sweep_select_kernelILi2ELb0EEEvPKfS2_S2_PKiPfPiS6_S6_S6_iiiiiiffffi
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 122 registers, 464 bytes cmem[0]
+== winner.cu
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_113winner_kernelILi0EEEvPKfS2_S2_PKiPfPiS6_S6_S6_iiiiiiffffi' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_113winner_kernelILi0EEEvPKfS2_S2_PKiPfPiS6_S6_S6_iiiiiiffffi
+    4 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 110 registers, used 1 barriers, 1024 bytes smem, 464 bytes cmem[0]
+ptxas info    : Compiling entry function '_Z13winner_kernelILi3EEvPKfS1_S1_PKiPfPiS5_S5_S5_iiiiiiffffi' for 'sm_90a'
+ptxas info    : Function properties for _Z13winner_kernelILi3EEvPKfS1_S1_PKiPfPiS5_S5_S5_iiiiiiffffi
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 80 registers, used 1 barriers, 2048 bytes smem, 464 bytes cmem[0]
+"""
+
+
+@pytest.mark.parametrize("log, want", [
+    (_RECOMPUTE_LOG, {
         "recompute_forward_kernel": dict(stack=0, spill_stores=0, spill_loads=0,
                                          registers=64, shared_bytes=4608),
         "recompute_backward_kernel": dict(stack=144, spill_stores=4, spill_loads=8,
-                                          registers=168, shared_bytes=0)}
+                                          registers=168, shared_bytes=0)}),
+    (_SWEEP_LOG, {
+        "sweep_select_kernel<1, true>": dict(stack=8, spill_stores=0, spill_loads=0,
+                                             registers=128, shared_bytes=39936),
+        "sweep_select_kernel<0, false>": dict(stack=0, spill_stores=12, spill_loads=16,
+                                              registers=96, shared_bytes=0),
+        "sweep_select_kernel<2, false>": dict(stack=0, spill_stores=0, spill_loads=0,
+                                              registers=122, shared_bytes=0),
+        "winner_kernel<3>": dict(stack=0, spill_stores=0, spill_loads=0, registers=80,
+                                 shared_bytes=2048),
+        "winner_kernel<0>": dict(stack=4, spill_stores=0, spill_loads=0, registers=110,
+                                 shared_bytes=1024)}),
+], ids=["recompute", "sweep"])
+def test_ptxas_summary(log, want):
+    """Phase 0 of chip_smoke reads each kernel's registers, stack, spills and
+    shared memory from nvcc's -Xptxas -v output: the recompute pair by name,
+    K1-K3 by instantiation."""
+    assert cuda_lib.ptxas_summary(log) == want

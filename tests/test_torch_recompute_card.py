@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from cbtr_tpu_torch.models import lens_model, scenes
+from cbtr_tpu_torch.ops import cuda_lib
 from cbtr_tpu_torch.ops import cuda_recompute as cr
 from cbtr_tpu_torch.ops import cuda_sweep as cs
 from cbtr_tpu_torch.ops import intersect as ix
@@ -48,11 +49,11 @@ def _cotangents(R, any_hit, seed):
 
 def test_forward_kernel_is_the_twin(robot):
     args = _args(robot)
-    before = cr.COUNTED["recompute_forward"].launches
+    before = cuda_lib.launch_counts()["recompute_forward"]
     got = cr.launch_forward(*args)
     want = cr.recompute_forward_reference(*args)
     torch.cuda.synchronize()
-    assert cr.COUNTED["recompute_forward"].launches == before + 1
+    assert cuda_lib.launch_counts()["recompute_forward"] == before + 1
     for g, w in zip(got, want):
         assert torch.equal(g, w)
     assert int((got[0] == ix.WHAT_INTERSECT).sum()) > 500
@@ -91,9 +92,9 @@ def test_train_step_on_the_kernels_is_the_twins(robot, monkeypatch):
         loss.backward()
         return loss.detach(), params.control_points.grad, params.refractive_index.grad
 
-    before = cr.COUNTED["recompute_backward"].launches
+    before = cuda_lib.launch_counts()["recompute_backward"]
     kernels = grads()
-    assert cr.COUNTED["recompute_backward"].launches == before + 2
+    assert cuda_lib.launch_counts()["recompute_backward"] == before + 2
     monkeypatch.setattr(cr, "on_kernels", lambda table, backend="auto": False)
     plain = grads()
     assert float(kernels[1].abs().max()) > 0

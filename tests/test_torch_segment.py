@@ -12,8 +12,10 @@ while no segment is longer than GROUP rows (XLA's CPU scatter-add and a
 sequential `index_add_` fold in row order, as level 0 does), and within the
 float64 bar above it.
 """
+import contextlib
 import re
 from pathlib import Path
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -22,8 +24,8 @@ import pytest
 import torch
 
 from cbtr_tpu_torch.harness.determinism import divergent_sites
+from cbtr_tpu_torch.ops import cuda_lib
 from cbtr_tpu_torch.ops import cuda_segment as sg
-from cbtr_tpu_torch.ops import cuda_sweep as cs
 from cbtr_tpu_torch.ops import intersect as ix
 from cbtr_tpu_torch.render import render
 
@@ -249,12 +251,13 @@ def test_non_contiguous_incoming_gradient():
 
 
 def test_cpu_tensors_never_build_or_launch():
-    before = sg.segment_sum.launches
+    before = cuda_lib.launch_counts()["segment_sum"]
     sg.segment_sum(torch.tensor([0, 1]), torch.ones(2, 3), 2)
-    assert sg.segment_sum.launches == before and "segment_sum" not in cs._libraries
+    assert cuda_lib.launch_counts()["segment_sum"] == before
+    assert "segment_sum" not in cuda_lib.loaded()
     with pytest.raises(ValueError, match="CUDA"):
         sg.launch(torch.tensor([0, 1]), torch.ones(2, 3), 2)
-    assert "segment_sum" not in cs._libraries
+    assert "segment_sum" not in cuda_lib.loaded()
 
 
 def test_runs_under_torch_deterministic_mode():
@@ -629,14 +632,14 @@ def test_workspace_plan_int32_limits():
         sg._workspace_plan(1000, 2**31 - 1, 1)
 
 
-class _StubLibrary:
-    """Stands in for the kernel's library on a CPU-only run: records the
-    arguments of each call."""
+class _StubEntry:
+    """Stands in for the kernel's C entry point on a CPU-only run: records
+    the arguments of each call."""
 
     def __init__(self):
-        self.calls = []
+        self.argtypes, self.restype, self.calls = None, None, []
 
-    def cbtr_segment_sum(self, *args):
+    def __call__(self, *args):
         self.calls.append(args)
         return 0
 
@@ -644,10 +647,10 @@ class _StubLibrary:
 @pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
 def test_cuda_path_calls_no_sort_searchsorted_cumsum(monkeypatch, dtype):
     """The wrapper's CUDA path (`_enqueue`, everything `launch` does after
-    its device checks) on CPU tensors with the library stubbed, with
-    torch.sort, argsort, searchsorted, cumsum and every read back to the
-    host made to raise: one zeroed output, one workspace of the plan's size,
-    one C call with the ids as they are (no conversion)."""
+    its device checks) on CPU tensors with the library and the stream
+    stubbed, with torch.sort, argsort, searchsorted, cumsum and every read
+    back to the host made to raise: one zeroed output, one workspace of the
+    plan's size, one C call with the ids as they are (no conversion)."""
     def banned(name):
         def raise_(*args, **kwargs):
             raise AssertionError(f"the CUDA path called {name}")
@@ -657,18 +660,29 @@ def test_cuda_path_calls_no_sort_searchsorted_cumsum(monkeypatch, dtype):
         monkeypatch.setattr(torch, name, banned(f"torch.{name}"))
     for name in ("item", "tolist", "cpu", "numpy", "sort", "cumsum", "argsort"):
         monkeypatch.setattr(torch.Tensor, name, banned(f"Tensor.{name}"))
-    lib = _StubLibrary()
+    entry = _StubEntry()
+
+    class _Stream:
+        cuda_stream = 1234
+
+    monkeypatch.setattr(cuda_lib, "library", lambda stem: SimpleNamespace(cbtr_segment_sum=entry))
+    monkeypatch.setattr(cuda_lib, "_launches", dict.fromkeys(cuda_lib.KERNELS, 0))
+    monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device: _Stream())
     ids = torch.arange(5000, dtype=dtype) % 451      # 450: dropped
     vals = torch.ones((5000, 60))
-    out, launched = sg._enqueue(lib, ids, vals, 450, 1234)
-    assert launched and out.shape == (450, 60) and not bool(out.any())
-    (args,) = lib.calls
+    out = sg._enqueue(ids, vals, 450)
+    assert cuda_lib.launch_counts()["segment_sum"] == 1
+    assert out.shape == (450, 60) and not bool(out.any())
+    (args,) = entry.calls
+    assert len(args) == len(entry.argtypes)
     plan = sg._workspace_plan(5000, 450, 60)
     assert args[0] == ids.data_ptr() and args[1] == ids.element_size()
     assert args[5:8] == (5000, 450, 60) and args[9] == 1234
     assert list(args[8]) == [plan.fields[f] for f in sg.PLAN_FIELDS]
     # nothing to add: no call
-    assert sg._enqueue(lib, ids[:0], vals[:0], 450, 0)[1] is False and len(lib.calls) == 1
+    assert not bool(sg._enqueue(ids[:0], vals[:0], 450).any()) and len(entry.calls) == 1
+    assert cuda_lib.launch_counts()["segment_sum"] == 1
 
 
 def test_robot_gradient_tree_against_sequential_index_add():

@@ -33,6 +33,7 @@ from cbtr_tpu.ops import pallas_sweep as jax_ps
 
 from cbtr_tpu_torch.convert import patches_from_numpy
 from cbtr_tpu_torch.ops import cuda_codes as cc
+from cbtr_tpu_torch.ops import cuda_lib
 from cbtr_tpu_torch.ops import cuda_sweep as cs
 from cbtr_tpu_torch.ops import cuda_winner as cw
 from cbtr_tpu_torch.ops import intersect as ix
@@ -188,10 +189,11 @@ def test_twin_chunking_is_invisible(cases, monkeypatch):
 def test_cpu_wrapper_runs_the_twin_and_launch_refuses_cpu(cases):
     c = cases["sphere256"]
     s, d = _t(c["start"][:200]), _t(c["d"][:200])
-    before = cc.sweep_codes_cuda.launches
+    before = cuda_lib.launch_counts()["sweep_codes"]
     got = cc.sweep_codes_cuda(c["port"], s, d)
     want = cc.sweep_codes_reference(c["port"], s, d)
-    assert cc.sweep_codes_cuda.launches == before and "sweep_codes" not in cs._libraries
+    assert cuda_lib.launch_counts()["sweep_codes"] == before
+    assert "sweep_codes" not in cuda_lib.loaded()
     for g, w in zip(got, want):
         assert torch.equal(g, w)
     inputs = cc.prepare_inputs(c["port"], s, d)
@@ -201,7 +203,7 @@ def test_cpu_wrapper_runs_the_twin_and_launch_refuses_cpu(cases):
         cc.launch(inputs)
     with pytest.raises(ValueError, match="CUDA"):
         cc.launch(inputs, cc.filled_outputs(inputs))
-    assert "sweep_codes" not in cs._libraries
+    assert "sweep_codes" not in cuda_lib.loaded()
 
 
 @pytest.mark.parametrize("case", ["sphere256", "robot1024"])

@@ -37,6 +37,7 @@ from cbtr_tpu_torch.harness.measure import measure_approximation
 from cbtr_tpu_torch.mesh.core import make_unit_sphere
 from cbtr_tpu_torch.models import scenes
 from cbtr_tpu_torch.ops import cuda_codes as cc
+from cbtr_tpu_torch.ops import cuda_lib
 from cbtr_tpu_torch.ops import cuda_sweep as cs
 from cbtr_tpu_torch.ops import cuda_tables as ct
 from cbtr_tpu_torch.ops import cuda_winner as cw
@@ -74,9 +75,9 @@ def port_cases():
 def test_build_tables_on_cpu_matches_jax(jax_cases, case, block_p):
     ref, port = jax_cases[case]
     P = ref.num_patches
-    before = ct.build_tables.launches
+    before = cuda_lib.launch_counts()["tables"]
     patch_t, bounds, nb = (x.numpy() for x in ct.build_tables(port, block_p))
-    assert ct.build_tables.launches == before and "tables" not in cs._libraries
+    assert cuda_lib.launch_counts()["tables"] == before and "tables" not in cuda_lib.loaded()
     P_pad = P + (-P) % 128
     assert patch_t.shape == (P_pad, 64) and patch_t.dtype == np.float32
     assert bounds.shape == (P_pad // block_p, 12) and bounds.dtype == np.float32
@@ -255,7 +256,7 @@ def test_table_launch_refuses(port_cases, fault, match):
     patches, block_p = fault(port_cases["sphere"])
     with pytest.raises(ValueError, match=match):
         ct.launch(patches, block_p)
-    assert "tables" not in cs._libraries
+    assert "tables" not in cuda_lib.loaded()
 
 
 def test_plain_versions_take_f64_patches(port_cases):
@@ -329,10 +330,11 @@ def test_codes_launch_refuses(port_cases, fault, match):
     at block 16 among them) never reach K3."""
     port = port_cases["robot"]
     inputs = _codes_inputs(port)
-    before = cc.sweep_codes_cuda.launches
+    before = cuda_lib.launch_counts()["sweep_codes"]
     with pytest.raises(ValueError, match=match):
         cc.launch(dataclasses.replace(inputs, **fault(inputs, port)), lists=True, pairs=True)
-    assert cc.sweep_codes_cuda.launches == before and "sweep_codes" not in cs._libraries
+    assert cuda_lib.launch_counts()["sweep_codes"] == before
+    assert "sweep_codes" not in cuda_lib.loaded()
 
 
 def test_codes_outputs_fields():

@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from cbtr_tpu_torch.models import lens_model, scenes
+from cbtr_tpu_torch.ops import cuda_lib
 from cbtr_tpu_torch.ops import cuda_tables as ct
 from cbtr_tpu_torch.ops import cuda_winner as cw
 from cbtr_tpu_torch.ops import intersect as ix
@@ -77,14 +78,14 @@ def test_hoist_leaves_images_and_gradients_bit_equal_on_the_card(robot, monkeypa
     sc = robot
 
     def run():
-        before = ct.build_tables.launches
+        before = cuda_lib.launch_counts()["tables"]
         with torch.no_grad():
             img = lens_model.lens_forward(lens_model.params_from_scene(sc), sc.start,
                                           sc.direction, sc.screen_plane, resolution=16,
                                           chunk_size=chunk)
         out = _loss_and_grads(sc, chunk)
         torch.cuda.synchronize()
-        return img, out, ct.build_tables.launches - before
+        return img, out, cuda_lib.launch_counts()["tables"] - before
 
     img, hoisted, hoisted_builds = run()
     monkeypatch.setattr(ix, "winner_tables", lambda patches, backend="auto": None)

@@ -28,6 +28,7 @@ from cbtr_tpu_torch.mesh.core import make_unit_sphere
 from cbtr_tpu_torch.models import design, lens_model, scenes
 from cbtr_tpu_torch.models.scenes import LENS_CENTER
 from cbtr_tpu_torch.ops import cuda_codes as cc
+from cbtr_tpu_torch.ops import cuda_lib
 from cbtr_tpu_torch.ops import cuda_sweep as cs
 from cbtr_tpu_torch.ops import cuda_tables as ct
 from cbtr_tpu_torch.ops import cuda_winner as cw
@@ -179,7 +180,7 @@ def test_clamped_neighbours_are_k2s_old_table(jax_cases, case):
 def test_pack_rays_on_cpu_is_pad_rays():
     """On the CPU the ray-pack wrapper runs `pad_rays` (nothing builds, no
     launch is counted): rows s, d, 0, 0, padding rays s = 0, d = (1, 0, 0)."""
-    before = ct.pack_rays.launches
+    before = cuda_lib.launch_counts()["pack_rays"]
     for n in (1, 127, 128, 200):
         start, d = _rays(n)
         got = ct.pack_rays(start, d)
@@ -189,7 +190,7 @@ def test_pack_rays_on_cpu_is_pad_rays():
         assert torch.equal(got[0:3, :n], start.T) and torch.equal(got[3:6, :n], d.T)
         assert (got[6:] == 0).all() and (got[0:3, n:] == 0).all()
         assert (got[3, n:] == 1).all() and (got[4:6, n:] == 0).all()
-    assert ct.pack_rays.launches == before and "tables" not in cs._libraries
+    assert cuda_lib.launch_counts()["pack_rays"] == before and "tables" not in cuda_lib.loaded()
 
 
 # ---------------------------------------------------------------------------
@@ -362,10 +363,10 @@ def test_pack_rays_launch_refuses(fault, match):
     """CPU rays, rays of another type, layout or length never reach the
     ray-pack kernel, and nothing is cast or built."""
     start, d = fault(*_rays(200))
-    before = ct.pack_rays.launches
+    before = cuda_lib.launch_counts()["pack_rays"]
     with pytest.raises(ValueError, match=match):
         ct.launch_pack_rays(start, d)
-    assert ct.pack_rays.launches == before and "tables" not in cs._libraries
+    assert cuda_lib.launch_counts()["pack_rays"] == before and "tables" not in cuda_lib.loaded()
 
 
 @pytest.mark.parametrize("wrapper, twin, clamp", [

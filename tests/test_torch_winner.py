@@ -26,6 +26,7 @@ from cbtr_tpu.ops import intersect as jax_ix
 from cbtr_tpu.ops import pallas_sweep as jax_ps
 
 from cbtr_tpu_torch.convert import patches_from_numpy
+from cbtr_tpu_torch.ops import cuda_lib
 from cbtr_tpu_torch.ops import cuda_sweep as cs
 from cbtr_tpu_torch.ops import cuda_winner as cw
 from cbtr_tpu_torch.ops import intersect as ix
@@ -241,14 +242,14 @@ def test_cpu_wrapper_runs_the_twin_and_launch_refuses_cpu(sphere):
     launches; the launch itself refuses CPU tables."""
     _, port_p = sphere
     start, d = (torch.tensor(x) for x in _fan(64, 7))
-    before = cw.sweep_winner.launches
+    before = cuda_lib.launch_counts()["winner"]
     got = cw.sweep_winner(port_p, start, d)
     want = cw.sweep_winner_reference(port_p, start, d)
-    assert cw.sweep_winner.launches == before and "winner" not in cs._libraries
+    assert cuda_lib.launch_counts()["winner"] == before and "winner" not in cuda_lib.loaded()
     for g, w in zip(got, want):
         assert torch.equal(g, w)
     with pytest.raises(ValueError, match="CUDA"):
         cw.launch(cw.prepare_inputs(port_p, start, d))
     with pytest.raises(ValueError, match="CUDA"):
         cs.launch(cs.prepare_inputs(port_p, start, d))
-    assert "winner" not in cs._libraries and "sweep_select" not in cs._libraries
+    assert "winner" not in cuda_lib.loaded() and "sweep_select" not in cuda_lib.loaded()
