@@ -398,7 +398,7 @@ def run(args) -> dict:
 
         # pairs K3 evaluates: listed and gated 32-patch blocks
         listed = cs.tile_bitmap_reference(k3_in.bounds, k3_in.rays_t, k3_in.use_aabb)
-        evaluated = cs.evaluated_pairs(
+        evaluated = cs.gated_pairs(
             listed, cs.sphere_hit_pairs(k3_in.patch_t, k3_in.rays_t), cc.BLOCK_P)
         executed = int(evaluated[:R, :P].sum())
         del k3_in, listed, evaluated

@@ -15,9 +15,9 @@ and K2.  Three parts:
   (counted by the kernel):
   (a) every block culled: the rays turned away from the lens;
   (b) none culled: the same tables with every live block's bounds and
-      every patch's gate sphere widened to hold every ray (`uncull_inputs`),
-      so every (ray, patch) pair is evaluated; its winners are held against
-      the unculled reference;
+      every patch's gate sphere and box widened to hold every ray
+      (`uncull_inputs`), so every (ray, patch) pair is evaluated; its
+      winners are held against the unculled reference;
   (c) the lens as it is;
   the floor is t(a), the cost a pair (t(b) - t(a)) / (pairs(b) - pairs(a)),
   and the predicted t(c) = t(a) + cost x (pairs(c) - pairs(a)) stands
@@ -69,7 +69,8 @@ def _kernel(kernel: str):
 def listed_counts(patches, start, direction, use_aabb: bool, kernel: str = "K1"):
     """(per-tile listed blocks [T], evaluated pairs): the kernel's own counts
     for CUDA tensors; for CPU tensors the list builder's (`tile_block_lists`,
-    equal to the kernel's) and `evaluated_pairs`.  Pairs are pass 1 plus the
+    equal to the kernel's) and the pairs the kernel's first pass evaluates
+    (K1: `evaluated_pairs`, K2: `gated_pairs`).  Pairs are pass 1 plus the
     retries on the card, pass 1 alone on the CPU."""
     prepare, launch, _ = _kernel(kernel)
     if start.is_cuda:
@@ -79,7 +80,12 @@ def listed_counts(patches, start, direction, use_aabb: bool, kernel: str = "K1")
     counts, lists = cs.tile_block_lists(patches, rays_t, use_aabb=use_aabb)
     patch_t = cs.pack_patch_table(patches)
     listed = cs.listed_blocks(counts, lists, patch_t.shape[0])
-    pairs = cs.evaluated_pairs(listed, cs.sphere_hit_pairs(patch_t, rays_t))
+    sphere = cs.sphere_hit_pairs(patch_t, rays_t)
+    if kernel == "K1":
+        pairs = cs.evaluated_pairs(listed, sphere,
+                                   cs.box_hit_pairs(cs.patch_box_table(patches), rays_t))
+    else:
+        pairs = cs.gated_pairs(listed, sphere)
     return counts, int(pairs[:start.shape[0], :patches.num_patches].sum())
 
 
@@ -123,10 +129,12 @@ def shape_rows(device, rays: int = 65536, res: int = 256) -> dict:
 
 def uncull_inputs(inputs: cs.KernelInputs) -> cs.KernelInputs:
     """The same tables with nothing culled: every live block's sphere and box
-    (`block_bounds` columns) and every real patch's gate sphere (the patch
-    table's radius column) widened to WIDE, so every block is listed for
-    every tile and gated open, and K2's neighbour-sphere gate always holds.
-    All-padding blocks keep radius -1 and padding rows radius 0."""
+    (`block_bounds` columns), every real patch's gate sphere (the patch
+    table's radius column) and its box (K1's `patch_box_table`) widened to
+    WIDE, so every block is listed for every tile and gated open, every pair
+    passes K1's per-pair test, and K2's neighbour-sphere gate always holds.
+    All-padding blocks keep radius -1 and padding rows radius 0 and their
+    zero box."""
     bounds = inputs.bounds.clone()
     live = bounds[:, cs._BND_RADIUS] >= 0.0
     bounds[live, cs._BND_RADIUS] = WIDE
@@ -134,8 +142,12 @@ def uncull_inputs(inputs: cs.KernelInputs) -> cs.KernelInputs:
     bounds[live, cs._BND_HI:cs._BND_HI + 3] = WIDE
     patch_t = inputs.patch_t.clone()
     radius = cs._ROW_BSPHERE + 3
-    patch_t[patch_t[:, radius] > 0.0, radius] = WIDE
-    return dataclasses.replace(inputs, bounds=bounds, patch_t=patch_t)
+    real = patch_t[:, radius] > 0.0
+    patch_t[real, radius] = WIDE
+    boxes = inputs.boxes.clone()
+    boxes[real, 0:3] = -WIDE
+    boxes[real, 3:6] = WIDE
+    return dataclasses.replace(inputs, bounds=bounds, patch_t=patch_t, boxes=boxes)
 
 
 def _rays_differ(a, b) -> int:

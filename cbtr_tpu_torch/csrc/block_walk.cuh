@@ -1,8 +1,9 @@
-// The (128-ray tile x patch block) walk shared by K1 (sweep_select.cu), K2
-// (winner.cu), both at blocks of 16 patches, and K3 (sweep_codes.cu) at 32
-// (block_p is a run-time argument): each CTA culls the blocks for its own
-// tile, then walks the listed blocks in ascending order with their rows
-// double-buffered in shared memory.
+// The (128-ray tile x patch block) walk shared by K2 (winner.cu) at blocks
+// of 16 patches and K3 (sweep_codes.cu) at 32 (block_p is a run-time
+// argument): each CTA culls the blocks for its own tile, then walks the
+// listed blocks in ascending order with their rows double-buffered in
+// shared memory.  K1 (sweep_select.cu) takes the cull and the parts' fold
+// from here, at its own thread count, and batches its blocks itself.
 //
 // The cull replaces the host-side lists (cuda_sweep.tile_block_lists), which
 // the TPU kernels took by scalar prefetch.  A block is listed for a tile when
@@ -22,9 +23,9 @@
 // 32 rows, 8 KiB) are already in flight by cp.async (16 bytes a thread) into
 // the other half of a double buffer.
 //
-// The split: a CTA runs SPLIT = 4 threads a ray (512 threads, one CTA and 16
-// warps an SM at <= 128 registers), each on 4 of a block's 16 patches (K3: 8
-// of 32).  A
+// The split: a CTA of K2 or K3 runs SPLIT = 4 threads a ray (512 threads,
+// one CTA and 16 warps an SM at <= 128 registers), each on 4 of a block's 16
+// patches (K3: 8 of 32).  A
 // tile's listed blocks range from 0 to 17 of 32 at P = 450, and a tile's CTA
 // runs them one after the other, so the tiles with the most blocks set the
 // kernel's end; four threads a ray finish such a tile in a quarter of the
@@ -81,11 +82,14 @@ __device__ __forceinline__ bool block_hit(const float* b, const Ray& r,
 
 // The tile's listed blocks into tile_bits [WB] (bit b of word b/32), WB =
 // ceil(B/32); returns their count.  sbounds holds BOUNDS_CHUNK rows of
-// bounds, warp_bits [N_WARPS][WB].  Every thread of the CTA calls it; it
+// bounds, warp_bits [NT / 32][WB].  Every thread of the CTA (NT of them:
+// NT / TILE_R a ray; K2 and K3 THREADS, K1 its own count) calls it; it
 // ends with the bitmap visible to all.
+template <int NT = THREADS>
 __device__ int cull_tile(const float* __restrict__ bounds, int B, bool use_aabb,
                          const Ray& r, float* sbounds, unsigned* warp_bits,
                          unsigned* tile_bits) {
+  constexpr int split = NT / TILE_R, n_warps = NT / 32;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int part = tid / TILE_R;
   const int WB = (B + 31) / 32;
@@ -93,15 +97,15 @@ __device__ int cull_tile(const float* __restrict__ bounds, int B, bool use_aabb,
   for (int c0 = 0; c0 < B; c0 += BOUNDS_CHUNK) {
     const int n = min(BOUNDS_CHUNK, B - c0);
     __syncthreads();  // the previous chunk is no longer read
-    for (int i = tid; i < n * N_BOUNDS; i += THREADS)
+    for (int i = tid; i < n * N_BOUNDS; i += NT)
       sbounds[i] = bounds[static_cast<size_t>(c0) * N_BOUNDS + i];
     __syncthreads();
     for (int j = 0; j < n; j += 32) {
       const int m = min(32, n - j);
       unsigned word = 0u;
-      // this warp's blocks of the 32: every SPLIT-th (chunks start at
+      // this warp's blocks of the 32: every split-th (chunks start at
       // multiples of 32, so i's residue is the block's)
-      for (int i = part; i < m; i += SPLIT) {
+      for (int i = part; i < m; i += split) {
         const bool hit = block_hit(sbounds + (j + i) * N_BOUNDS, r, inv, use_aabb);
         word |= (__any_sync(0xffffffffu, hit) ? 1u : 0u) << i;
       }
@@ -109,10 +113,10 @@ __device__ int cull_tile(const float* __restrict__ bounds, int B, bool use_aabb,
     }
   }
   __syncthreads();
-  for (int w = tid; w < WB; w += THREADS) {
+  for (int w = tid; w < WB; w += NT) {
     unsigned word = 0u;
 #pragma unroll
-    for (int k = 0; k < N_WARPS; ++k) word |= warp_bits[k * WB + w];
+    for (int k = 0; k < n_warps; ++k) word |= warp_bits[k * WB + w];
     tile_bits[w] = word;
   }
   __syncthreads();
@@ -152,11 +156,13 @@ __device__ __forceinline__ void stage_rows(float* dst, const float* __restrict__
 }
 
 // fold the other parts' (best, best_id) of each ray into part 0's, through
-// `scratch` (SPLIT - 1) * TILE_R * 8 bytes of shared memory no thread reads
-// any more; every thread calls it
+// `scratch` (NT / TILE_R - 1) * TILE_R * 8 bytes of shared memory no thread
+// reads any more; every thread of the CTA (NT of them) calls it
+template <int NT = THREADS>
 __device__ __forceinline__ void combine_parts(float& best, int& best_id, void* scratch) {
+  constexpr int split = NT / TILE_R;
   float* d = static_cast<float*>(scratch);
-  int* id = reinterpret_cast<int*>(d + (SPLIT - 1) * TILE_R);
+  int* id = reinterpret_cast<int*>(d + (split - 1) * TILE_R);
   const int ray = threadIdx.x % TILE_R, part = threadIdx.x / TILE_R;
   if (part > 0) {
     d[(part - 1) * TILE_R + ray] = best;
@@ -164,7 +170,7 @@ __device__ __forceinline__ void combine_parts(float& best, int& best_id, void* s
   }
   __syncthreads();
   if (part == 0) {
-    for (int k = 0; k < SPLIT - 1; ++k) fold(d[k * TILE_R + ray], id[k * TILE_R + ray], best, best_id);
+    for (int k = 0; k < split - 1; ++k) fold(d[k * TILE_R + ray], id[k * TILE_R + ray], best, best_id);
   }
 }
 

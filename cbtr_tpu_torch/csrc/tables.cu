@@ -6,20 +6,22 @@
 // _ROW_* layout of cuda_sweep.py: control net, underlying plane, barycentric
 // inverse, heights, derivative direction, divider planes, inflated bounding
 // sphere), the [P_pad, 3] neighbour table (-1 on padding rows, or every id
-// clamped to [0, P) for K2) and the [B, 12] block bounds (merged sphere and
-// union AABB per block_p-patch block, radius -1 for an all-padding block),
-// all three in one caller-given workspace at the byte offsets of its plan
-// (cuda_tables._workspace_plan).  pack_rays_kernel writes the [8, R_pad] ray
+// clamped to [0, P) for K2), the [B, 12] block bounds (merged sphere and
+// union AABB per block_p-patch block, radius -1 for an all-padding block) and
+// the [P_pad, 8] per-patch boxes K1's per-pair test reads (lo xyz, hi xyz,
+// two zeros; zero on padding rows), all four in one caller-given workspace
+// at the byte offsets of its plan (cuda_tables._workspace_plan).  pack_rays_kernel writes the [8, R_pad] ray
 // table K1-K3 read from [R, 3] starts and directions.  Neither replaces a
 // Pallas kernel: on the TPU these are the XLA functions of
 // cbtr_tpu/ops/pallas_sweep.py (pack_patch_table, patch_spheres,
 // _patch_boxes, _block_spheres_cr) and the `rays.T` of its callers, fused by
 // the compiler into the jitted step; in the port their plain versions
-// (cuda_sweep.pack_patch_table, block_bounds, the neighbour fill, pad_rays)
+// (cuda_sweep.pack_patch_table, block_bounds, patch_box_table, the neighbour
+// fill, pad_rays)
 // are about 90 small device ops a table build and 5 a ray table.
 //
 // What bounds them on the H100: the launch.  The work is elementwise: 63
-// words read and 67 written per patch (128 KiB of table at P_pad = 512, 4 MiB
+// words read and 75 written per patch (128 KiB of table at P_pad = 512, 4 MiB
 // at 16,256), ten square roots per patch and block_p per block; 24 bytes read
 // and 32 written per ray (14.7 MB at 262,144 rays: 4.4 us at 3.35 TB/s).  So
 // the design is about the launches around them: the tables are built once a
@@ -63,8 +65,9 @@ constexpr int ROW_STRIDE = N_ROWS + 4;
 constexpr int RAYS_PER_CTA = 256;
 
 // the plan's fields (cuda_tables.PLAN_FIELDS, in order): the padded rows,
-// the byte offsets of the three tables in the workspace, its least size
-enum Field { P_PAD = 0, PATCH_T, BOUNDS, NB, NBYTES, N_FIELDS };
+// the byte offsets of the four tables in the workspace, its least size
+enum Field { P_PAD = 0, PATCH_T, BOUNDS, NB, BOXES, NBYTES, N_FIELDS };
+constexpr int N_BOX = 8;  // cuda_sweep.patch_box_table's columns
 
 __device__ __forceinline__ float norm3(float x, float y, float z) {
   return sqrtf(x * x + y * y + z * z);
@@ -90,6 +93,7 @@ tables_kernel(const float* __restrict__ control_points,  // [P, 10, 3]
               float* __restrict__ patch_t,               // [P_pad, 64]
               float* __restrict__ bounds,                // [P_pad / block_p, 12]
               int* __restrict__ nb,                      // [P_pad, 3]
+              float* __restrict__ boxes,                 // [P_pad, 8]
               int P, int block_p, int clamp) {
   __shared__ __align__(16) TablesShared s;
   const int tid = threadIdx.x;
@@ -165,6 +169,9 @@ tables_kernel(const float* __restrict__ control_points,  // [P, 10, 3]
     s.hi[i][tid] = hi[i];
   }
   s.r[tid] = row[ROW_BSPHERE + 3];
+  float4* box = reinterpret_cast<float4*>(boxes + static_cast<size_t>(p) * N_BOX);
+  box[0] = make_float4(lo[0], lo[1], lo[2], hi[0]);
+  box[1] = make_float4(hi[1], hi[2], 0.0f, 0.0f);
   __syncthreads();
 
   // ---- the CTA's rows, one contiguous run of float4s ----
@@ -248,7 +255,8 @@ extern "C" int cbtr_tables(const void* control_points, const void* underlying,
   const long long P_pad = plan[P_PAD];
   if (P <= 0 || P_pad < P || P_pad % ROWS_PER_CTA != 0 || block_p <= 0 ||
       ROWS_PER_CTA % block_p != 0 || plan[NBYTES] > workspace_bytes ||
-      reinterpret_cast<unsigned long long>(workspace) % 16 != 0 || plan[PATCH_T] % 16 != 0 || plan[BOUNDS] % 16 != 0 || plan[NB] % 4 != 0)
+      reinterpret_cast<unsigned long long>(workspace) % 16 != 0 || plan[PATCH_T] % 16 != 0 || plan[BOUNDS] % 16 != 0 || plan[NB] % 4 != 0 ||
+      plan[BOXES] % 16 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   char* base = static_cast<char*>(workspace);
   tables_kernel<<<static_cast<int>(P_pad / ROWS_PER_CTA), ROWS_PER_CTA, 0,
@@ -260,7 +268,8 @@ extern "C" int cbtr_tables(const void* control_points, const void* underlying,
       static_cast<const int*>(neighbours),
       reinterpret_cast<float*>(base + plan[PATCH_T]),
       reinterpret_cast<float*>(base + plan[BOUNDS]),
-      reinterpret_cast<int*>(base + plan[NB]), P, block_p, clamp);
+      reinterpret_cast<int*>(base + plan[NB]), reinterpret_cast<float*>(base + plan[BOXES]),
+      P, block_p, clamp);
   return static_cast<int>(cudaGetLastError());
 }
 

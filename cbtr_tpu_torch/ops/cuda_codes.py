@@ -63,7 +63,7 @@ def sweep_codes_reference(patches: BezierPatches, start, direction,
 
     Dense `intersect.sweep_codes` in the mode config asks for
     (`intersect.sweep_mode()`), then (WHAT_NONE, 0.0) on every pair
-    outside `cuda_sweep.evaluated_pairs(..., block_p=32)`.  Rays go in
+    outside `cuda_sweep.gated_pairs(..., block_p=32)`.  Rays go in
     chunks of whole tiles, about _REFERENCE_CHUNK_PAIRS pairs each."""
     R = start.shape[0]
     P = patches.num_patches
@@ -78,8 +78,8 @@ def sweep_codes_reference(patches: BezierPatches, start, direction,
     codes, dists = [], []
     for t0 in range(0, listed.shape[0], tiles_per_chunk):
         rt = rays_t[:, t0 * cs.TILE_R:(t0 + tiles_per_chunk) * cs.TILE_R]
-        keep = cs.evaluated_pairs(listed[t0:t0 + tiles_per_chunk],
-                                  cs.sphere_hit_pairs(patch_t, rt), BLOCK_P)[:, :P]
+        keep = cs.gated_pairs(listed[t0:t0 + tiles_per_chunk],
+                              cs.sphere_hit_pairs(patch_t, rt), BLOCK_P)[:, :P]
         code, dist = ix.sweep_codes(patches, rt[0:3].T, rt[3:6].T, mode)
         codes.append(torch.where(keep, code, ix.WHAT_NONE))
         dists.append(torch.where(keep, dist, 0.0))

@@ -15,18 +15,30 @@ granularity, as on the TPU:
   their own tile (csrc/block_walk.cuh), the plain twins read the same test
   from `tile_block_lists`, and `tile_bitmap_reference` is the kernels' cull
   in plain torch;
-* inside a listed block, the block is evaluated for all 128 rays when ANY
-  (patch, ray) pair of block x tile passes the per-patch sphere test;
+* inside a listed block, the block is gated open for all 128 rays when ANY
+  (patch, ray) pair of block x tile passes the per-patch sphere test
+  (`gated_pairs`);
 * pairs of unlisted or ungated blocks produce no candidate (code
-  WHAT_NONE), which is part of the semantics: gating per pair would drop
-  retry candidates the reference computes (they converge up to 66x the
-  hull radius out).
+  WHAT_NONE), which is part of the semantics.  Where the gate acts it stays
+  per block, never per pair, because it defines the retries: a voted
+  neighbour is retried where its block was gated open, and a retry is a
+  gate-OFF candidate that can converge up to 66x the hull radius out, so a
+  per-pair test would drop retries the reference computes.  In the first
+  pass per-pair gating is sound: a pair contributes there (a direct hit or
+  a vote) only where its gate-ON code holds, i.e. its ray crosses the flat
+  triangle of the patch's corners, which are control points, so the ray
+  meets the patch's inflated sphere and slack-widened box
+  (`patch_box_table`).  K1 evaluates in its first pass only the pairs of
+  the gated blocks that pass both (`evaluated_pairs`: about a sixth of the
+  gated pairs on a beam through the robot lens), with the survivors dealt
+  evenly over the CTA's threads so that no warp waits on another's share
+  (csrc/sweep_select.cu); its winners are those of the unit-gated set.
 
 Two options of the JAX package's kernel, off by default: the sweep's
 arithmetic (`intersect.sweep_mode()`: config.fast_newton and
 config.bf16_sweep, read at every call by the kernel and the twin alike),
 and `half_gate` (each half of a listed block behind its own sphere gate,
-`evaluated_pairs`; block_p >= 16, as the JAX package takes it).
+`gated_pairs`; block_p >= 16, as the JAX package takes it).
 
 `sweep_select` launches csrc/sweep_select.cu for CUDA tensors and calls
 `sweep_select_reference` for CPU tensors; it never falls back from one to
@@ -55,6 +67,7 @@ _ROW_DB = 45       # 3 cols: second derivative direction
 _ROW_DIV = 48      # 12 cols: 3 divider planes x (nx, ny, nz, c)
 _ROW_BSPHERE = 60  # 4 cols: bounding sphere cx, cy, cz, radius (inflated)
 _N_ROWS = 64
+_N_BOX = 8         # per-patch box table (`patch_box_table`): lo xyz, hi xyz, 0, 0
 
 TILE_R = 128       # rays per tile (one CUDA block, one thread per ray)
 BLOCK_P = 16       # patches per candidate block (FUSED_BLOCK_P)
@@ -114,6 +127,17 @@ def _patch_boxes(cp, center, radius):
     r_hull = _norm3(cp - center[:, None, :]).amax(dim=-1)
     slack = (radius - r_hull).clamp_min(0.0)[:, None]
     return cp.amin(dim=1) - slack, cp.amax(dim=1) + slack
+
+
+def patch_box_table(patches: BezierPatches, spheres=None) -> torch.Tensor:
+    """[P_pad, 8] f32 per-patch boxes of K1's per-pair test (`_patch_boxes`:
+    lo xyz, hi xyz, 2 zero columns); padding rows all zero.  spheres:
+    `patch_spheres(patches)`, where the caller has them already."""
+    center, radius = patch_spheres(patches) if spheres is None else spheres
+    P = patches.num_patches
+    lo, hi = _patch_boxes(patches.control_points, center, radius)
+    rows = torch.cat([lo, hi, lo.new_zeros((P, 2))], dim=-1).to(torch.float32)
+    return _pad_rows(rows, P + (-P) % _PATCH_PAD).contiguous()
 
 
 def _ray_aabb_hit(lo, hi, s, d):
@@ -284,7 +308,7 @@ def pad_rays(start, direction) -> torch.Tensor:
 
 def sphere_hit_pairs(patch_t, rays_t):
     """Per-(ray, patch) bounding-sphere test [R, P_pad] over the packed table
-    (the expression csrc/candidate.cuh::sphere_hit evaluates)."""
+    (the expression csrc/candidate.cuh::patch_sphere_hit evaluates)."""
     bc = patch_t[:, _ROW_BSPHERE:_ROW_BSPHERE + 4]
     sx, sy, sz = (rays_t[k, :, None] for k in range(3))
     dx, dy, dz = (rays_t[k, :, None] for k in range(3, 6))
@@ -293,6 +317,14 @@ def sphere_hit_pairs(patch_t, rays_t):
     rel2 = relx * relx + rely * rely + relz * relz
     r2 = bc[:, 3] * bc[:, 3]
     return ((rel2 - t_ca * t_ca) <= r2) & ((t_ca >= 0.0) | (rel2 <= r2))
+
+
+def box_hit_pairs(boxes, rays_t):
+    """Per-(ray, patch) box test [R, P_pad] over the per-patch boxes [P_pad,
+    8] (`patch_box_table`): the slab test K1 evaluates on each pair
+    (csrc/sweep_select.cu patch_box_hit, block_walk.cuh's block test on the
+    patch's own box)."""
+    return _ray_aabb_hit(boxes[:, 0:3], boxes[:, 3:6], rays_t[0:3].T, rays_t[3:6].T)
 
 
 # ---------------------------------------------------------------------------
@@ -308,11 +340,13 @@ def sweep_select_reference(patches: BezierPatches, start, direction,
     cull=True computes the kernel's function: per-pair `_candidates_core`
     codes in the mode config asks for (`intersect.sweep_mode()`), pairs
     outside the listed-and-gated (tile x block, or x half-block with
-    half_gate) set forced to WHAT_NONE, then `select_candidates`; use_aabb
-    and block_p as in `tile_block_lists`.  cull=False is exact `sweep_codes`
-    followed by `select_candidates` over every pair (the JAX package's XLA
-    path, which no mode reaches).  Rays are processed in chunks of
-    _REFERENCE_CHUNK_R."""
+    half_gate) set `gated_pairs` forced to WHAT_NONE, then
+    `select_candidates`; use_aabb and block_p as in `tile_block_lists`.
+    Under `profiling.counting()` it counts the pairs the kernel's first
+    pass evaluates (`evaluated_pairs`), which give the same winners.
+    cull=False is exact `sweep_codes` followed by `select_candidates` over
+    every pair (the JAX package's XLA path, which no mode reaches).  Rays
+    are processed in chunks of _REFERENCE_CHUNK_R."""
     R = start.shape[0]
     P = patches.num_patches
     start = start.to(torch.float32)
@@ -333,15 +367,18 @@ def sweep_select_reference(patches: BezierPatches, start, direction,
     patch_t = pack_patch_table(patches)
     listed = listed_blocks(*tile_block_lists(patches, rays_t, block_p, use_aabb),
                            patch_t.shape[0], block_p)
+    boxes = patch_box_table(patches) if profiling.counting_enabled() else None
 
     mode = ix.sweep_mode()
     tiles_per_chunk = _REFERENCE_CHUNK_R // TILE_R
     outs = []
     for t0 in range(0, listed.shape[0], tiles_per_chunk):
         rt = rays_t[:, t0 * TILE_R:(t0 + tiles_per_chunk) * TILE_R]
-        keep = evaluated_pairs(listed[t0:t0 + tiles_per_chunk],
-                               sphere_hit_pairs(patch_t, rt), block_p, half_gate)[:, :P]
-        count_twin_pairs("sweep_select", keep)
+        lt, sphere = listed[t0:t0 + tiles_per_chunk], sphere_hit_pairs(patch_t, rt)
+        keep = gated_pairs(lt, sphere, block_p, half_gate)[:, :P]
+        if boxes is not None:
+            count_twin_pairs("sweep_select", evaluated_pairs(
+                lt, sphere, box_hit_pairs(boxes, rt), block_p)[:, :P])
         code, dist = ix.sweep_codes(patches, rt[0:3].T, rt[3:6].T, mode)
         code = torch.where(keep, code, ix.WHAT_NONE)
         outs.append(ix.select_candidates(code, dist, patches.neighbours))
@@ -368,13 +405,15 @@ def check_half_gate(half_gate: bool, block_p: int, cull: bool = True):
                          f"got block_p = {block_p}, cull = {cull}")
 
 
-def evaluated_pairs(listed, sphere, block_p: int = BLOCK_P, half_gate: bool = False):
-    """The (ray, patch) pairs a kernel evaluates: those of blocks listed for
+def gated_pairs(listed, sphere, block_p: int = BLOCK_P, half_gate: bool = False):
+    """The (ray, patch) pairs of the gated units: those of blocks listed for
     the ray's tile AND gated, i.e. some (patch, ray) pair of block x tile
     passes the sphere test; with half_gate (K1's option) each half of a
-    listed block (block_p / 2 patches) is gated on its own.  listed [tc, B]
-    (B = P_pad / block_p), sphere [tc*TILE_R, P_pad] (`sphere_hit_pairs`) ->
-    [tc*TILE_R, P_pad] bool."""
+    listed block (block_p / 2 patches) is gated on its own.  K2 and K3
+    evaluate these pairs; in K1 they are the pairs whose codes count (its
+    retries are those of gated units), and its first pass evaluates the
+    subset `evaluated_pairs`.  listed [tc, B] (B = P_pad / block_p), sphere
+    [tc*TILE_R, P_pad] (`sphere_hit_pairs`) -> [tc*TILE_R, P_pad] bool."""
     tc, B = listed.shape
     unit = block_p // 2 if half_gate else block_p
     units = B * block_p // unit
@@ -384,16 +423,30 @@ def evaluated_pairs(listed, sphere, block_p: int = BLOCK_P, half_gate: bool = Fa
         tc, TILE_R, units, unit).reshape(tc * TILE_R, units * unit)
 
 
+def evaluated_pairs(listed, sphere, box, block_p: int = BLOCK_P):
+    """The (ray, patch) pairs K1's first pass evaluates: listed for the
+    ray's tile, gated (`gated_pairs`, with or without the half gate) and
+    passing the pair's own sphere and box tests.  A pair that passes the
+    sphere test opens its unit's gate, so this is listed AND sphere AND box
+    whatever the unit.  listed [tc, B], sphere and box [tc*TILE_R, P_pad]
+    (`sphere_hit_pairs`, `box_hit_pairs`) -> [tc*TILE_R, P_pad] bool."""
+    tc, B = listed.shape
+    listed = listed[:, None, :, None].expand(tc, TILE_R, B, block_p).reshape(sphere.shape)
+    return listed & sphere & box
+
+
 # ---------------------------------------------------------------------------
 # the kernel: launch
 # ---------------------------------------------------------------------------
 
-# cbtr_sweep_select's and cbtr_winner's parameters: 9 pointers, T, P, P_pad,
-# block_p, use_aabb, iterations, 4 tolerances, clamp_secant, the mode
-# (`intersect.SweepMode.code`), K1's half_gate, the stream
-_ARGS = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_float] * 4 + [ctypes.c_int] * 2
-_ENTRY_ARGTYPES = {"sweep_select": _ARGS + [ctypes.c_int, ctypes.c_void_p],
-                   "winner": _ARGS + [ctypes.c_void_p]}
+# cbtr_sweep_select's and cbtr_winner's parameters: 9 pointers (K1 10: the
+# boxes after the patch table), T, P, P_pad, block_p, use_aabb, iterations,
+# 4 tolerances, clamp_secant, the mode (`intersect.SweepMode.code`), K1's
+# half_gate, the stream
+_ARGS = [ctypes.c_int] * 6 + [ctypes.c_float] * 4 + [ctypes.c_int] * 2
+_ENTRY_ARGTYPES = {"sweep_select": [ctypes.c_void_p] * 10 + _ARGS + [ctypes.c_int,
+                                                                     ctypes.c_void_p],
+                   "winner": [ctypes.c_void_p] * 9 + _ARGS + [ctypes.c_void_p]}
 
 
 def occupancy(stem: str, P_pad: int, mode: int = 0, half_gate: bool = False) -> int:
@@ -415,6 +468,7 @@ class KernelInputs:
     patch_t: torch.Tensor   # [P_pad, 64] f32
     bounds: torch.Tensor    # [P_pad / block_p, 12] f32 (`block_bounds`)
     nb: torch.Tensor        # [P_pad, 3] i32 neighbour ids, -1 on padding
+    boxes: torch.Tensor     # [P_pad, 8] f32 (`patch_box_table`), read by K1 only
     num_patches: int
     use_aabb: bool = True   # the cull's AABB leg (`tile_block_lists`)
     block_p: int = BLOCK_P  # patches per candidate block (the bounds' rows)
@@ -460,7 +514,7 @@ def _inputs(patches: BezierPatches, start, direction, use_aabb: bool, block_p: i
         check_tables(tables, patches, block_p, clamped)
     rays_t = cuda_tables.pack_rays(start.to(torch.float32).contiguous(),
                                    direction.to(torch.float32).contiguous())
-    return KernelInputs(rays_t, tables.patch_t, tables.bounds, tables.nb,
+    return KernelInputs(rays_t, tables.patch_t, tables.bounds, tables.nb, tables.boxes,
                         patches.num_patches, use_aabb, block_p)
 
 
@@ -469,8 +523,8 @@ def prepare_inputs(patches: BezierPatches, start, direction,
                    tables=None) -> KernelInputs:
     """The kernel's tables on the rays' device: the rays
     (`cuda_tables.pack_rays`: one launch of the ray-pack kernel on the
-    card, `pad_rays` on the CPU); patch table, block bounds and neighbours
-    from `tables` (a `cuda_tables.PatchTables` of these patches at block_p,
+    card, `pad_rays` on the CPU); patch table, block bounds, neighbours and
+    per-patch boxes from `tables` (a `cuda_tables.PatchTables` of these patches at block_p,
     unclamped), or, where none are given, from `cuda_tables.build_tables`
     (the table kernel on the card, the plain versions on the CPU); use_aabb
     and block_p as in `tile_block_lists` (the main path runs BLOCK_P; 32 is
@@ -488,12 +542,15 @@ def check_inputs(inputs: KernelInputs, kernel: str):
             or _PATCH_PAD % inputs.block_p:
         raise ValueError(f"unsupported shape: P = {inputs.num_patches}, "
                          f"R_pad = {R_pad}, P_pad = {P_pad}, block_p = {inputs.block_p}")
-    for t, name, dtype, shape in (
+    tables = [
         (inputs.rays_t, "rays_t", torch.float32, (8, R_pad)),
         (inputs.patch_t, "patch_t", torch.float32, (P_pad, _N_ROWS)),
         (inputs.bounds, "bounds", torch.float32, (P_pad // inputs.block_p, _N_BOUNDS)),
         (inputs.nb, "neighbours", torch.int32, (P_pad, 3)),
-    ):
+    ]
+    if kernel == "K1":
+        tables.append((inputs.boxes, "boxes", torch.float32, (P_pad, _N_BOX)))
+    for t, name, dtype, shape in tables:
         cuda_lib.check_tensor(t, name, dtype, shape, device)
     if device.type != "cuda":
         raise ValueError(f"{kernel} runs on CUDA tensors, got {device}; on the "
@@ -507,7 +564,7 @@ def launch_kernel(stem: str, inputs: KernelInputs, lists: bool = False,
     stream over tables from `prepare_inputs`, in the mode config asks for
     (`intersect.sweep_mode()`).  lists / pairs also fill the per-tile lists
     and pair counts (for checks; the main path asks for neither); half_gate
-    is K1's option (`evaluated_pairs`).  `cuda_lib.call` launches and
+    is K1's option (`gated_pairs`).  `cuda_lib.call` launches and
     counts it (as "sweep_select" or "winner"); while `profiling.counting()`
     is on it fills the pair counts whether asked or not and adds them to
     the kernel's accumulator on the device (`pair_counts`)."""
@@ -525,10 +582,12 @@ def launch_kernel(stem: str, inputs: KernelInputs, lists: bool = False,
         lists=torch.full((B, T), -1, dtype=torch.int32, device=device) if lists else None,
         pairs=torch.zeros((T, 2), dtype=torch.int32, device=device) if pairs else None)
 
-    options = (ix.sweep_mode().code,) + ((int(half_gate),) if stem == "sweep_select" else ())
+    k1 = stem == "sweep_select"
+    options = (ix.sweep_mode().code,) + ((int(half_gate),) if k1 else ())
     cuda_lib.call(
         stem, _ENTRY_ARGTYPES[stem], device,
         inputs.rays_t.data_ptr(), inputs.patch_t.data_ptr(),
+        *((inputs.boxes.data_ptr(),) if k1 else ()),
         inputs.bounds.data_ptr(), inputs.nb.data_ptr(),
         out.dist.data_ptr(), out.win.data_ptr(), out.counts.data_ptr(),
         out.lists.data_ptr() if lists else None,
@@ -563,7 +622,7 @@ def sweep_select(patches: BezierPatches, start, direction, use_aabb: bool = True
     CPU tensors go to `sweep_select_reference` (cull=True); CUDA tensors
     launch csrc/sweep_select.cu; both in the mode config asks for
     (`intersect.sweep_mode()`); use_aabb as in `tile_block_lists`;
-    half_gate as in `evaluated_pairs` (off on every path of the port);
+    half_gate as in `gated_pairs` (off on every path of the port);
     tables: the patches' `cuda_tables.PatchTables` at BLOCK_P, where the
     caller built them (`prepare_inputs` builds them otherwise; the twin
     checks them and builds its own).  There is no fallback between the two:
@@ -597,8 +656,8 @@ def _add_pairs(stem: str, pairs) -> None:
 
 def count_twin_pairs(stem: str, keep) -> None:
     """While `profiling.counting()` is on, add a plain twin's evaluated
-    pairs (`keep`, its `evaluated_pairs` mask) as pass-1 pairs of `stem`;
-    the twins count no retries."""
+    pairs (`keep`: K1's `evaluated_pairs`, K2's `gated_pairs`) as pass-1
+    pairs of `stem`; the twins count no retries."""
     if profiling.counting_enabled():
         total = keep.sum(dtype=torch.int64)
         _add_pairs(stem, torch.stack((total, torch.zeros_like(total))))

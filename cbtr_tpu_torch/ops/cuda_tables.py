@@ -3,13 +3,14 @@ kernel, their wrappers and their plain PyTorch versions.
 
 Everything K1, K2 and K3 read about the patches, from the leaves of a
 `BezierPatches`: the row-major [P_pad, 64] patch table, the [P_pad / block_p,
-12] block bounds the kernels cull by, and the [P_pad, 3] neighbour table; and
-the [8, R_pad] ray table of a chunk's rays.  On the TPU these come from XLA
+12] block bounds the kernels cull by, the [P_pad, 3] neighbour table and the
+[P_pad, 8] per-patch boxes of K1's per-pair test (K2 and K3 do not read
+them); and the [8, R_pad] ray table of a chunk's rays.  On the TPU these come from XLA
 functions of cbtr_tpu/ops/pallas_sweep.py (`pack_patch_table`,
 `patch_spheres`, `_patch_boxes`, `_block_spheres_cr`, the callers'
 `rays.T`), fused by the compiler into the jitted step.  Here their plain
 versions are about 90 small device ops a table build and 5 a ray table;
-csrc/tables.cu builds the three tables in one launch into one workspace
+csrc/tables.cu builds the four tables in one launch into one workspace
 (`_workspace_plan`), and the ray table in another, each bit-equal to the
 plain versions (their f32 expressions in their order, no contraction).
 
@@ -45,7 +46,7 @@ _FLOAT_LEAVES = ("control_points", "underlying", "bary_inverse", "heights",
 
 # the fields of the plan cbtr_tables reads (csrc/tables.cu Field), in order:
 # the padded rows, the tables' byte offsets in the workspace, its least size
-PLAN_FIELDS = ("P_pad", "patch_t", "bounds", "nb", "nbytes")
+PLAN_FIELDS = ("P_pad", "patch_t", "bounds", "nb", "boxes", "nbytes")
 _ALIGN = 256
 
 # cbtr_tables' parameters: 7 leaves, the workspace, its bytes, the plan, P,
@@ -59,13 +60,14 @@ _PACK_ARGTYPES = [_VP] * 3 + [_CI] * 2 + [_VP]
 @dataclasses.dataclass(frozen=True)
 class PatchTables:
     """The kernels' tables for one lens (`build_tables`): K1 and K2 take them
-    at block 16 (K2 with `clamped` neighbours), K3 at block 32.  On the card
-    the three tensors are views of one workspace.  Unpacks as (patch_t,
-    bounds, nb)."""
+    at block 16 (K2 with `clamped` neighbours), K3 at block 32; only K1
+    reads `boxes`.  On the card the four tensors are views of one
+    workspace.  Unpacks as (patch_t, bounds, nb)."""
 
     patch_t: torch.Tensor   # [P_pad, 64] f32
     bounds: torch.Tensor    # [P_pad / block_p, 12] f32 (`cuda_sweep.block_bounds`)
     nb: torch.Tensor        # [P_pad, 3] i32: -1 on padding, or clamped to [0, P)
+    boxes: torch.Tensor     # [P_pad, 8] f32 (`cuda_sweep.patch_box_table`)
     num_patches: int
     block_p: int = cs.BLOCK_P
     clamped: bool = False
@@ -84,6 +86,7 @@ class WorkspacePlan:
     patch_t: int
     bounds: int
     nb: int
+    boxes: int
     nbytes: int
 
     def as_c_array(self):
@@ -93,8 +96,8 @@ class WorkspacePlan:
 @functools.lru_cache(maxsize=64)
 def _workspace_plan(num_patches: int, block_p: int = cs.BLOCK_P) -> WorkspacePlan:
     """The workspace of one build for num_patches >= 1 at block_p (a divisor
-    of 128): the patch table, the bounds and the neighbours, in that order,
-    each at a 256-byte aligned offset."""
+    of 128): the patch table, the bounds, the neighbours and the boxes, in
+    that order, each at a 256-byte aligned offset."""
     P, block_p = int(num_patches), int(block_p)
     if P <= 0:
         raise ValueError("no patches")
@@ -103,14 +106,14 @@ def _workspace_plan(num_patches: int, block_p: int = cs.BLOCK_P) -> WorkspacePla
     P_pad = P + (-P) % cs._PATCH_PAD
     offsets, end = [], 0
     for nbytes in (4 * P_pad * cs._N_ROWS, 4 * (P_pad // block_p) * cs._N_BOUNDS,
-                   4 * P_pad * 3):
+                   4 * P_pad * 3, 4 * P_pad * cs._N_BOX):
         offsets.append(end)
         end += -(-nbytes // _ALIGN) * _ALIGN
     return WorkspacePlan(P_pad, block_p, *offsets, end)
 
 
 def _views(workspace: torch.Tensor, plan: WorkspacePlan):
-    """(patch_t, bounds, nb): the plan's tables as views of the workspace
+    """(patch_t, bounds, nb, boxes): the plan's tables as views of the workspace
     (a uint8 vector at a 256-byte aligned address, at least plan.nbytes
     long), each carved by one `as_strided`: the views are made once a
     build, on the host, so they are kept few."""
@@ -120,25 +123,28 @@ def _views(workspace: torch.Tensor, plan: WorkspacePlan):
     return (f32.as_strided((plan.P_pad, cs._N_ROWS), (cs._N_ROWS, 1), base + plan.patch_t // 4),
             f32.as_strided((plan.P_pad // plan.block_p, cs._N_BOUNDS), (cs._N_BOUNDS, 1),
                            base + plan.bounds // 4),
-            i32.as_strided((plan.P_pad, 3), (3, 1), base + plan.nb // 4))
+            i32.as_strided((plan.P_pad, 3), (3, 1), base + plan.nb // 4),
+            f32.as_strided((plan.P_pad, cs._N_BOX), (cs._N_BOX, 1), base + plan.boxes // 4))
 
 
 def build_tables_reference(patches: BezierPatches, block_p: int = cs.BLOCK_P,
                            clamp: bool = False) -> PatchTables:
     """Plain PyTorch version of the table kernel: patch_t [P_pad, 64] f32,
-    bounds [P_pad / block_p, 12] f32 and nb [P_pad, 3] i32 from
-    `cuda_sweep.pack_patch_table`, `cuda_sweep.block_bounds` (one
-    `patch_spheres` for both) and the neighbour fill, -1 on padding rows;
-    clamp: every id clamped to [0, P) (K2's table)."""
+    bounds [P_pad / block_p, 12] f32, nb [P_pad, 3] i32 and boxes [P_pad,
+    8] f32 from `cuda_sweep.pack_patch_table`, `cuda_sweep.block_bounds`,
+    `cuda_sweep.patch_box_table` (one `patch_spheres` for all three) and
+    the neighbour fill, -1 on padding rows; clamp: every id clamped to [0,
+    P) (K2's table)."""
     P = patches.num_patches
     spheres = cs.patch_spheres(patches)
     patch_t = cs.pack_patch_table(patches, spheres)
     bounds = cs.block_bounds(patches, block_p, spheres)
+    boxes = cs.patch_box_table(patches, spheres)
     nb = torch.full((patch_t.shape[0], 3), -1, dtype=torch.int32, device=patches.device)
     nb[:P] = patches.neighbours.to(torch.int32)
     if clamp:
         nb = nb.clamp(0, P - 1)
-    return PatchTables(patch_t, bounds, nb, P, block_p, clamp)
+    return PatchTables(patch_t, bounds, nb, boxes, P, block_p, clamp)
 
 
 def _table_leaves(patches: BezierPatches):

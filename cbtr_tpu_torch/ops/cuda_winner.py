@@ -63,7 +63,7 @@ def sweep_winner_reference(patches: BezierPatches, start, direction,
     for t0 in range(0, listed.shape[0], tiles_per_chunk):
         rt = rays_t[:, t0 * cs.TILE_R:(t0 + tiles_per_chunk) * cs.TILE_R]
         sphere = cs.sphere_hit_pairs(patch_t, rt)
-        keep = cs.evaluated_pairs(listed[t0:t0 + tiles_per_chunk], sphere)[:, :P]
+        keep = cs.gated_pairs(listed[t0:t0 + tiles_per_chunk], sphere)[:, :P]
         cs.count_twin_pairs("winner", keep)
         sphere = sphere[:, :P]
         code, dist = ix.sweep_codes(patches, rt[0:3].T, rt[3:6].T, mode)

@@ -61,7 +61,9 @@ Phases:
   2  K1 against its plain twin at the full shape, the lowest-id tie rule;
      K1's per-tile counts and lists (its in-kernel cull) against the host
      list builder `tile_block_lists`, with and without the AABB leg, and
-     its pass-1 pairs against `evaluated_pairs`
+     its pass-1 pairs against `evaluated_pairs` (the unit-gated pairs that
+     pass their own sphere and box), beside the pairs the unit gates
+     admitted
   3  the render on K1 and on the plain twin
   4  three SGD train steps (the headline path; their launches counted,
      and `tile_block_lists`' calls: the GPU path never calls it); the
@@ -92,7 +94,8 @@ Phases:
      lists against the host builder's
   t  the table kernel against the plain versions (`torch.equal` on the
      patch table, the bounds at block 16 and 32, the neighbours, K2's
-     clamped ones; the three tables views of one workspace) on the robot,
+     clamped ones, K1's per-patch boxes; the four tables views of one
+     workspace) on the robot,
      refined robot, split-4, split-6, dimpled solid, sphere 17 x 10 and
      ellipsoid 15 x 5; the ray pack `torch.equal` to `pad_rays` at 262,144,
      1,048,576 and 262,107 rays of the 4096^2 grid; each one's time (CUDA
@@ -108,7 +111,7 @@ Phases:
      65,536 x 1800 (refined): codes on every pair, distances bit-equal on
      every cIntersect pair (the other pairs counted); its in-kernel counts
      and lists against `tile_block_lists(block_p=32)`, with and without the
-     AABB leg, its evaluated pairs against `evaluated_pairs`; no
+     AABB leg, its evaluated pairs against `gated_pairs`; no
      `tile_block_lists` call inside the wrapper; the staged winners (K3,
      then select_candidates) against K1 or K2; recompute rejects on 4096
      rays; K3's time alone (on outputs filled once), with the output fill,
@@ -122,10 +125,11 @@ Phases:
      rejects of its winners, its evaluated pairs and its time alone in
      turns with the default (exact, mode, mode, exact) with the share of the
      default's bound; K1 with half_gate in every mode torch.equal to its
-     twin, its pass-1 pairs against evaluated_pairs(half_gate=True), its
-     winners against half_gate=False and its time in turns (off, on, on,
-     off); K1's and K2's pair counters under `profiling.counting()` equal
-     to the launch's pairs on the same inputs (row "counter").  The
+     twin, its pass-1 pairs against `evaluated_pairs` beside the pairs its
+     half gates admitted, its winners against half_gate=False and its
+     time in turns (off, on, on, off); K1's and K2's pair counters under
+     `profiling.counting()` equal to the launch's pairs on the same inputs
+     and to the twin's count on the same rays (row "counter").  The
      kernels line carries each row under "modes"
   g  K4 against its twin (rtol 2e-6) at the short lengths fp.CHECK_LENGTHS,
      where the chains have not converged, and at both timing lengths;
@@ -216,10 +220,13 @@ Phases:
      script's two calls equal bit for bit (`deterministic`),
      each asserting what its JAX counterpart asserts (a finite, nonzero
      image; a finite, nonzero gradient; the two fluxes per ray within
-     2 %), with its wall time, rays/s, peak memory and chunk; K1
-     bit-equal to its twin on the first chunk (1,048,576 rays) of each
-     refraction of the 4K grid render and of the emitter render; the K1
-     and K2 time
+     2 %), with its wall time, rays/s, peak memory and chunk; K1 on
+     every chunk of both refractions of the 4K grid render and of the
+     emitter render (all 16,777,216 rays of each pass) against its
+     unit-gated twin on the tiles that list a block (0 rays differ; a tile
+     that lists none a miss) and against K1 with the cull open (counted),
+     each launch's engagement (the pairs the unit gates admitted, the pairs
+     K1 evaluated, equal to `evaluated_pairs`); the K1 and K2 time
      decomposition (cull_probe.decomposition_rows: every block culled, none
      culled, the lens as it is; (b)'s winners against the unculled
      reference, (c)'s against the wrapper); K1 at blocks of 16 and 32 on
@@ -433,10 +440,30 @@ def _winner_bound(inputs, pairs):
     return _bound_ms(pairs * _flop_per_pair(), nbytes)
 
 
+def _engagement(cs, inputs, listed, half_gate=False):
+    """(pairs the unit gates admitted, pairs that pass their own sphere and
+    box): `gated_pairs` (what K2 evaluates) and `evaluated_pairs` (what K1
+    evaluates) over the tiles' listed blocks [T, B], the real patches'
+    columns."""
+    P = inputs.num_patches
+    admitted = evaluated = 0
+    tiles_per_chunk = max(1, (1 << 25) // (cs.TILE_R * inputs.patch_t.shape[0]))
+    for t0 in range(0, listed.shape[0], tiles_per_chunk):
+        rt = inputs.rays_t[:, t0 * cs.TILE_R:(t0 + tiles_per_chunk) * cs.TILE_R]
+        lt = listed[t0:t0 + tiles_per_chunk]
+        sphere = cs.sphere_hit_pairs(inputs.patch_t, rt)
+        admitted += int(cs.gated_pairs(lt, sphere, half_gate=half_gate)[:, :P].sum())
+        evaluated += int(cs.evaluated_pairs(lt, sphere, cs.box_hit_pairs(inputs.boxes, rt))
+                         [:, :P].sum())
+    return admitted, evaluated
+
+
 def _check_lists(cs, cw, stem, patches, start, direction, use_aabb=True, half_gate=False):
     """The kernel's in-kernel cull against the host list builder: per-tile
-    counts equal, lists[:counts[t], t] equal; its pass-1 pairs against
-    `evaluated_pairs` (with K1's half_gate or without).  Returns (inputs,
+    counts equal, lists[:counts[t], t] equal; its pass-1 pairs against the
+    pairs it evaluates (K1: `evaluated_pairs`, the unit-gated pairs that pass
+    their own sphere and box, with its half_gate or without, printed beside
+    the pairs the unit gates admitted; K2: `gated_pairs`).  Returns (inputs,
     listed fraction, pass-1 pairs, retries)."""
     import torch
 
@@ -451,14 +478,13 @@ def _check_lists(cs, cw, stem, patches, start, direction, use_aabb=True, half_ga
     assert torch.equal(out.lists[mask], lists[mask]), (stem, patches.num_patches)
     listed = cs.listed_blocks(counts, lists, inputs.patch_t.shape[0])
     P = patches.num_patches
-    pass1 = 0
-    tiles_per_chunk = max(1, (1 << 27) // (cs.TILE_R * inputs.patch_t.shape[0]))
-    for t0 in range(0, T, tiles_per_chunk):
-        rt = inputs.rays_t[:, t0 * cs.TILE_R:(t0 + tiles_per_chunk) * cs.TILE_R]
-        pass1 += int(cs.evaluated_pairs(listed[t0:t0 + tiles_per_chunk],
-                                        cs.sphere_hit_pairs(inputs.patch_t, rt),
-                                        half_gate=half_gate)[:, :P].sum())
     got_pass1, retries = (int(x) for x in out.pairs.sum(dim=0, dtype=torch.int64))
+    admitted, evaluated = _engagement(cs, inputs, listed, half_gate)
+    pass1 = evaluated if stem == "sweep_select" else admitted
+    if stem == "sweep_select":
+        print(f"[k1] engagement at {start.shape[0]} x {P} (use_aabb={use_aabb}, half_gate="
+              f"{half_gate}): the unit gates admitted {admitted} pairs, K1 evaluated "
+              f"{got_pass1} ({got_pass1 / max(admitted, 1):.4f} of them)", flush=True)
     assert got_pass1 == pass1, (stem, P, got_pass1, pass1)
     return inputs, float(counts.sum()) / (B * T), pass1, retries
 
@@ -466,7 +492,7 @@ def _check_lists(cs, cw, stem, patches, start, direction, use_aabb=True, half_ga
 def _check_codes_lists(cs, cc, patches, start, direction, use_aabb):
     """K3's in-kernel cull (block 32) against `tile_block_lists`: per-tile
     counts equal, lists[:counts[t], t] equal; its evaluated pairs against
-    `evaluated_pairs`.  Returns (inputs, listed fraction, evaluated pairs)."""
+    `gated_pairs`.  Returns (inputs, listed fraction, evaluated pairs)."""
     import torch
 
     inputs = cc.prepare_inputs(patches, start, direction, use_aabb)
@@ -479,7 +505,7 @@ def _check_codes_lists(cs, cc, patches, start, direction, use_aabb):
     mask = torch.arange(B, device=counts.device)[:, None] < counts[None, :]
     assert torch.equal(out.lists[mask], lists[mask]), ("K3", P, use_aabb)
     listed = cs.listed_blocks(counts, lists, inputs.patch_t.shape[0], cc.BLOCK_P)
-    executed = int(cs.evaluated_pairs(
+    executed = int(cs.gated_pairs(
         listed, cs.sphere_hit_pairs(inputs.patch_t, inputs.rays_t), cc.BLOCK_P)[:, :P].sum())
     got = int(out.pairs.sum(dtype=torch.int64))
     assert got == executed, ("K3", P, use_aabb, got, executed)
@@ -489,7 +515,8 @@ def _check_codes_lists(cs, cc, patches, start, direction, use_aabb):
 def _check_tables(ct, name, patches):
     """The table kernel against the plain versions on one lens, at block 16
     and 32 and with K2's clamped neighbours at block 16: every table
-    `torch.equal`, the three views of one workspace.  Returns max |kernel -
+    `torch.equal` (K1's per-patch boxes: `_patch_boxes`), the four views of
+    one workspace.  Returns max |kernel -
     plain| (0.0)."""
     import torch
 
@@ -500,8 +527,10 @@ def _check_tables(ct, name, patches):
         torch.cuda.synchronize()
         assert (got.num_patches, got.block_p, got.clamped) == (
             want.num_patches, want.block_p, want.clamped), (name, block_p, clamp)
-        assert len({t.untyped_storage().data_ptr() for t in got}) == 1, (name, block_p)
-        for table, g, w in zip(("patch_t", "bounds", "nb"), got, want):
+        assert len({t.untyped_storage().data_ptr() for t in (*got, got.boxes)}) == 1, \
+            (name, block_p)
+        for table, g, w in zip(("patch_t", "bounds", "nb", "boxes"), (*got, got.boxes),
+                               (*want, want.boxes)):
             assert g.dtype == w.dtype and g.shape == w.shape, (name, block_p, clamp, table)
             assert torch.equal(g, w), (name, block_p, clamp, table, int((g != w).sum()))
             # empty blocks hold infinite box corners on both sides: inf - inf
@@ -575,7 +604,7 @@ def _modes_phase(card, scene, refined, bounds):
     wrapper's pair counter under `profiling.counting()` equal to the
     launch's `pairs` on the same inputs (K1 and K2, exact); K1
     with half_gate in every mode equal to its twin, its pass-1 pairs against
-    `evaluated_pairs(half_gate=True)`, its winners against half_gate=False
+    `evaluated_pairs`, its winners against half_gate=False
     and its time in turns.  bounds: each kernel's default bound (ms), which
     every mode's share is taken against.  Returns {kernel: {mode: row}}."""
     import torch
@@ -605,11 +634,18 @@ def _modes_phase(card, scene, refined, bounds):
         asked = tuple(int(x) for x in launch(inputs, pairs=True).pairs.sum(dim=0,
                                                                             dtype=torch.int64))
         same = all(torch.equal(a, b) for a, b in zip(counted_out, default))
-        rows[stem]["counter"] = dict(counted=list(counted), pairs=list(asked), same_winners=same)
+        with profiling.counting():
+            twin(p, s, d)
+        twin_counted = cs.pair_counts()[stem]
+        cs.reset_pair_counts()
+        rows[stem]["counter"] = dict(counted=list(counted), pairs=list(asked), same_winners=same,
+                                     twin_pass1=twin_counted[0])
         print(f"[q] {card} | {stem} {s.shape[0]} x {p.num_patches}: its counter under "
               f"profiling.counting() {counted} (pass-1 pairs, retries), the launch's pairs "
-              f"{asked}; winners equal to the uncounted call's {same}", flush=True)
+              f"{asked}, the twin's pass-1 pairs {twin_counted[0]}; winners equal to the "
+              f"uncounted call's {same}", flush=True)
         assert counted == asked and counted[0] > 0 and same, (stem, counted, asked, same)
+        assert twin_counted[0] == counted[0], (stem, twin_counted, counted)
         for name in _OPT_MODES:
             with ix.using_mode(ix.MODES[name]):
                 got = wrapper(p, s, d)
@@ -665,7 +701,7 @@ def _modes_phase(card, scene, refined, bounds):
         rays_differ=cmp[4], pairs=[pass1, retries], ms=times["half_gate=True"],
         default_ms=times["half_gate=False"], share=bounds["sweep_select"] / ms)
     print(f"[q] {card} | K1 half_gate {s.shape[0]} x {p.num_patches}: pass-1 pairs {pass1} "
-          f"(= evaluated_pairs(half_gate=True)) + {retries} retries; against half_gate=False: "
+          f"(= evaluated_pairs) + {retries} retries; against half_gate=False: "
           f"any_hit agreement {cmp[0]:.6f}, win agreement {cmp[1]:.6f}, {cmp[4]} rays differ; "
           f"kernel alone in turns (off, on, on, off) {times['half_gate=False'][0]:.4f}, "
           f"{times['half_gate=True'][0]:.4f}, {times['half_gate=True'][1]:.4f}, "
@@ -749,27 +785,80 @@ def _fit_step_ms(fit_lens, sc, target, optimizer, learning_rate, steps=4) -> flo
     return (time.perf_counter() - t) / steps * 1e3
 
 
-def _first_chunks(render, chunks: int):
-    """The rays `render()` hands the winner search in the first chunk of
-    each of its two refractions (captured at `intersect._winner_chunk`):
-    [(start, direction)] * 2."""
+def _rays_differ(a, b) -> int:
+    """Rays whose (any_hit, winner, distance) differ between two winner
+    searches' results: the hit flag, or on a hit the winner or the
+    distance's bits."""
+    import torch
+
+    hit = a[0] & b[0]
+    return int(((a[0] != b[0]) | (hit & ((a[1] != b[1])
+                                          | (a[2].view(torch.int32) != b[2].view(torch.int32)))))
+               .sum())
+
+
+def _k1_every_chunk(cs, patches, render, label: str, chunks: int):
+    """Every chunk `render()` hands the winner search in its two refractions
+    (`chunks` each), checked as it passes (`intersect._winner_chunk`): K1
+    (`launch`, with its pairs) against its twin on the rays of the tiles
+    that list a block, those tiles' rays kept whole and in order (a tile
+    that lists none is a miss, asserted), and against K1 with the cull open
+    (`cull_probe.uncull_inputs`); each launch's engagement printed (the
+    pairs the unit gates admitted, the pairs K1 evaluated, asserted equal
+    to `evaluated_pairs`).  Returns one dict a refraction: rays, chunks,
+    twin rays, rays that differ from the twin and from the open cull,
+    admitted and evaluated pairs, retries."""
+    import torch
+
+    from cbtr_tpu_torch.benchmarks import cull_probe
     from cbtr_tpu_torch.ops import intersect as ix
 
-    seen, calls, search = [], [0], ix._winner_chunk
+    keys = ("rays", "chunks", "twin_rays", "differ_twin", "differ_open", "admitted",
+            "evaluated", "retries")
+    rows = [dict.fromkeys(keys, 0) for _ in range(2)]
+    search, calls = ix._winner_chunk, [0]
 
-    def record(patches, start, direction, *args, **kwargs):
-        if calls[0] % chunks == 0:
-            seen.append((start.clone(), direction.clone()))
+    def check(p, start, direction, *args, **kwargs):
+        result = search(p, start, direction, *args, **kwargs)
+        R = start.shape[0]
+        inputs = cs.prepare_inputs(patches, start, direction)
+        out = cs.launch(inputs, pairs=True)
+        k1 = (out.dist[:R] < cs._BIG_F * 0.5, out.win[:R], out.dist[:R])
+        tiles = torch.nonzero(out.counts > 0)[:, 0]
+        rays = (tiles[:, None] * cs.TILE_R
+                + torch.arange(cs.TILE_R, device=tiles.device)[None, :]).reshape(-1)
+        rays = rays[rays < R]
+        quiet = torch.ones(R, dtype=torch.bool, device=start.device)
+        quiet[rays] = False
+        assert not bool(k1[0][quiet].any()), (label, "a tile that lists no block hit")
+        differ_twin = 0
+        if rays.numel():
+            twin = cs.sweep_select_reference(patches, start[rays], direction[rays])
+            differ_twin = _rays_differ(tuple(x[rays] for x in k1), twin)
+        wide = cs.launch(cull_probe.uncull_inputs(inputs))
+        differ_open = _rays_differ(k1, (wide.dist[:R] < cs._BIG_F * 0.5, wide.win[:R],
+                                        wide.dist[:R]))
+        admitted, evaluated = _engagement(
+            cs, inputs, cs.tile_bitmap_reference(inputs.bounds, inputs.rays_t))
+        pass1, retries = (int(x) for x in out.pairs.sum(dim=0, dtype=torch.int64))
+        assert pass1 == evaluated, (label, calls[0], pass1, evaluated)
+        print(f"[k1] engagement, {label} call {calls[0]}: {R} rays, the unit gates admitted "
+              f"{admitted} pairs, K1 evaluated {pass1} + {retries} retries", flush=True)
+        row = rows[calls[0] // chunks]
+        for key, value in zip(keys, (R, 1, int(rays.numel()), differ_twin, differ_open,
+                                     admitted, pass1, retries)):
+            row[key] += value
         calls[0] += 1
-        return search(patches, start, direction, *args, **kwargs)
+        return result
 
-    ix._winner_chunk = record
+    ix._winner_chunk = check
     try:
-        render()
+        with torch.no_grad():
+            render()
     finally:
         ix._winner_chunk = search
-    assert calls[0] == 2 * chunks, (calls, chunks)
-    return seen
+    assert calls[0] == 2 * chunks, (label, calls, chunks)
+    return rows
 
 
 def _bin_sorted_fraction(d, belts: int) -> float:
@@ -1527,9 +1616,6 @@ def _scale_phase(dev, card):
     print(f"[p] the 4K paths took {time.perf_counter() - t:.1f} s; launches in each "
           f"script {path_launches}", flush=True)
 
-    # K1 against its plain version at the 4K paths' launch shape: the first
-    # chunk of each refraction of the grid render and of the emitter render
-    t = time.perf_counter()
     sc = robot_lens_scene(res=1, device=dev)
     mesh = multihost_mesh()
     renders = {
@@ -1540,21 +1626,26 @@ def _scale_phase(dev, card):
             mesh, sc.patches, sc.refractive_index, emitter4k.device_emitter(n),
             sc.screen_plane, resolution=256, chunk_size=chunk),
     }
+    # every ray of both refractions of both 4K renders: K1 against the
+    # unit-gated semantics it replaces (its twin, on the tiles that list a
+    # block; a tile that lists none is a miss on both) and against K1 with
+    # the cull open (every block listed and gated, every pair evaluated)
+    t = time.perf_counter()
+    every_ray = {}
     for label, render_fn in renders.items():
-        with torch.no_grad():
-            first = _first_chunks(render_fn, -(-n // chunk))
-        for refraction, (s, d) in enumerate(first, 1):
-            name = f"K1 {label} chunk 0 refraction {refraction}"
-            cmp = _compare(cs.sweep_select(sc.patches, s, d),
-                           cs.sweep_select_reference(sc.patches, s, d))
-            print(f"[p] {name} ({s.shape[0]} x {sc.patches.num_patches}) vs twin: any_hit "
-                  f"agreement {cmp[0]:.6f}, win agreement on {cmp[3]} common hits "
-                  f"{cmp[1]:.6f}, max |d dist| {cmp[2]:.3e}", flush=True)
-            _assert_exact(name, cmp)
-        del first
+        every_ray[label] = _k1_every_chunk(cs, sc.patches, render_fn, label, -(-n // chunk))
+        for refraction, row in enumerate(every_ray[label], 1):
+            print(f"[p] {card} | K1 {label} refraction {refraction}: {row['rays']} rays in "
+                  f"{row['chunks']} chunks, {row['twin_rays']} of them on tiles that list a "
+                  f"block; against the unit-gated twin {row['differ_twin']} rays differ; "
+                  f"against K1 with the cull open {row['differ_open']}; the unit gates "
+                  f"admitted {row['admitted']} pairs, K1 evaluated {row['evaluated']} "
+                  f"({row['evaluated'] / max(row['admitted'], 1):.4f} of them) + "
+                  f"{row['retries']} retries", flush=True)
+            assert row["rays"] == n and row["differ_twin"] == 0, (label, refraction, row)
     del sc
     torch.cuda.empty_cache()
-    print(f"[p] K1 against its twin on the 4K paths' first chunks took "
+    print(f"[p] K1 against the unit-gated twin on every ray took "
           f"{time.perf_counter() - t:.1f} s", flush=True)
 
     t = time.perf_counter()
@@ -1585,7 +1676,8 @@ def _scale_phase(dev, card):
     print(f"[p] decomposition and block size took {time.perf_counter() - t:.1f} s",
           flush=True)
     return {"render": render, "train": train, "emitter": em,
-            "launches": path_launches, "decomposition": rows, "block_size": blocks}
+            "launches": path_launches, "decomposition": rows, "block_size": blocks,
+            "k1_every_ray": every_ray}
 
 
 # the shape of the main path's segment sum (the headline step's recompute
@@ -2580,7 +2672,7 @@ def main(argv=None) -> int:
         print(f"[f] K3's in-kernel cull at {s.shape[0]} x {p.num_patches} (block "
               f"{cc.BLOCK_P}): counts and lists equal tile_block_lists', {listed:.4f} of "
               f"tile x block pairs listed and {executed} pairs evaluated (= "
-              f"evaluated_pairs) with the AABB leg, {sphere_listed:.4f} and {sphere_pairs} "
+              f"gated_pairs) with the AABB leg, {sphere_listed:.4f} and {sphere_pairs} "
               f"without; tile_block_lists calls inside sweep_codes_cuda "
               f"{list_calls[0]}", flush=True)
         k3_out = cc.filled_outputs(k3_in)

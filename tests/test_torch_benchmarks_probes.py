@@ -74,11 +74,11 @@ def test_cull_probe_fractions_match_the_jax_probe(sphere):
 
 def test_uncull_inputs_evaluate_every_pair(sphere):
     """(b) of the decomposition: with `uncull_inputs` every live block is
-    listed for every tile and every real (ray, patch) pair passes the gate,
-    so the kernels evaluate every pair (their function is then the unculled
-    reference's); all-padding blocks keep radius -1, padding rows radius 0;
-    the widened cull stays finite in f32 (a slab reciprocal is at most
-    1e30)."""
+    listed for every tile and every real (ray, patch) pair passes the gate
+    and K1's per-pair sphere and box test, so the kernels evaluate every
+    pair (their function is then the unculled reference's); all-padding
+    blocks keep radius -1, padding rows radius 0 and a zero box; the
+    widened cull stays finite in f32 (a slab reciprocal is at most 1e30)."""
     _, port = sphere
     # the first 100 patches: a table of 128 rows, its last block all padding
     patches = type(port.patches)(**{k: v[:100] for k, v in port.patches.leaves().items()})
@@ -92,7 +92,10 @@ def test_uncull_inputs_evaluate_every_pair(sphere):
     P = patches.num_patches
     sphere_ok = cs.sphere_hit_pairs(wide.patch_t, wide.rays_t)
     assert bool(sphere_ok[:, :P].all()) and not bool(sphere_ok[:, P:].any())
-    pairs = cs.evaluated_pairs(bitmap, sphere_ok)[:port.start.shape[0], :P]
+    assert bool(cs.gated_pairs(bitmap, sphere_ok)[:port.start.shape[0], :P].all())
+    box_ok = cs.box_hit_pairs(wide.boxes, wide.rays_t)
+    assert bool(box_ok[:, :P].all()) and not bool(wide.boxes[P:].any())
+    pairs = cs.evaluated_pairs(bitmap, sphere_ok, box_ok)[:port.start.shape[0], :P]
     assert bool(pairs.all())
     assert (cull_probe.WIDE + 10.0) * 1e30 < float(torch.finfo(torch.float32).max)
     assert torch.equal(wide.rays_t, inputs.rays_t) and torch.equal(wide.nb, inputs.nb)

@@ -208,6 +208,8 @@ def _replace(inputs, **fields):
     (lambda i: {"nb": i.nb.long()}, "neighbours"),
     (lambda i: {"rays_t": i.rays_t[:, :100].contiguous()}, "unsupported shape"),
     (lambda i: {"num_patches": 0}, "unsupported shape"),
+    (lambda i: {"boxes": i.boxes[:, :6].contiguous()}, "boxes"),
+    (lambda i: {"boxes": i.boxes.double()}, "boxes"),
 ])
 def test_check_inputs_refuses(cases, fault, match):
     """CPU tables and tables of the wrong shape, type or layout never reach

@@ -99,16 +99,22 @@ def test_half_gate_keeps_the_winners(cases, case):
 
 
 def test_half_gate_evaluates_fewer_pairs(cases):
-    """On the robot the half gate drops pairs (never adds one), and each
-    half's pairs are evaluated iff the half is listed and some pair of it
-    passes the sphere test (a loop over halves in NumPy)."""
+    """On the robot the half gate drops pairs of the gated set (never adds
+    one), and each half's pairs are gated iff the half is listed and some
+    pair of it passes the sphere test (a loop over halves in NumPy).  The
+    gated set holds the pairs whose codes count, the retries' among them;
+    K1's first pass evaluates the same subset of it with the half gate or
+    without (`evaluated_pairs`: each pair's own sphere and box)."""
     _, port_p, start, d = cases["robot1024"]
     rays_t = cs.pad_rays(torch.tensor(start), torch.tensor(d))
     patch_t = cs.pack_patch_table(port_p)
     listed = cs.listed_blocks(*cs.tile_block_lists(port_p, rays_t), patch_t.shape[0])
     sphere = cs.sphere_hit_pairs(patch_t, rays_t)
-    whole = cs.evaluated_pairs(listed, sphere).numpy()
-    half = cs.evaluated_pairs(listed, sphere, half_gate=True).numpy()
+    whole = cs.gated_pairs(listed, sphere).numpy()
+    half = cs.gated_pairs(listed, sphere, half_gate=True).numpy()
+    box = cs.box_hit_pairs(cs.patch_box_table(port_p), rays_t)
+    first_pass = cs.evaluated_pairs(listed, sphere, box).numpy()
+    assert not (first_pass & ~half).any() and first_pass.sum() < half.sum()
     assert half.sum() < whole.sum() and not (half & ~whole).any()
     sph, lst = sphere.numpy(), listed.numpy()
     want = np.zeros_like(half)

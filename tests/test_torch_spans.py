@@ -236,13 +236,19 @@ def test_span_decorates_a_function():
     assert times["cbtr.decorated"][1] == 3
 
 
-def _evaluated(patches, start, direction):
-    """The pairs the kernels evaluate on these rays: `evaluated_pairs` over
-    the tiles' lists and the sphere test, the real patches' columns."""
+def _evaluated(patches, start, direction, stem):
+    """The pairs the kernel evaluates on these rays, the real patches'
+    columns: K1's `evaluated_pairs` (listed, gated, each pair's sphere and
+    box), K2's `gated_pairs` (listed and gated)."""
     rays_t = cs.pad_rays(start, direction)
     patch_t = cs.pack_patch_table(patches)
     listed = cs.listed_blocks(*cs.tile_block_lists(patches, rays_t), patch_t.shape[0])
-    keep = cs.evaluated_pairs(listed, cs.sphere_hit_pairs(patch_t, rays_t))
+    sphere = cs.sphere_hit_pairs(patch_t, rays_t)
+    if stem == "sweep_select":
+        keep = cs.evaluated_pairs(listed, sphere,
+                                  cs.box_hit_pairs(cs.patch_box_table(patches), rays_t))
+    else:
+        keep = cs.gated_pairs(listed, sphere)
     return int(keep[:, :patches.num_patches].sum())
 
 
@@ -255,7 +261,7 @@ def test_twins_count_the_pairs_they_evaluate(scene, stem):
         wrapper(scene.patches, start, direction)
         wrapper(scene.patches, start, direction)
     counts = cs.pair_counts()
-    want = _evaluated(scene.patches, start, direction)
+    want = _evaluated(scene.patches, start, direction, stem)
     assert want > 0
     assert counts[stem] == (2 * want, 0)
     assert all(v == (0, 0) for k, v in counts.items() if k != stem)

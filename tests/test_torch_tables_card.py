@@ -1,6 +1,6 @@
 """The tables built once a lens a trace, on the card: the kernels read the
-tables they are handed, and the hoist leaves images and gradients
-bit-equal.  On the CPU the winner wrappers check the tables and run their
+tables they are handed, the hoist leaves images and gradients bit-equal,
+and the table kernel's per-patch boxes (K1's) equal the plain build's.  On the CPU the winner wrappers check the tables and run their
 twins, which build their own (tests/test_torch_tables_hoist.py), so these
 hold only where the kernels run.
 
@@ -97,3 +97,19 @@ def test_hoist_leaves_images_and_gradients_bit_equal_on_the_card(robot, monkeypa
     for a, b in zip(hoisted, per_chunk):
         assert torch.equal(a, b)
     assert float(hoisted[1].abs().max()) > 0
+
+
+@pytest.mark.parametrize("refine", [False, True])
+def test_table_kernel_boxes_are_the_patch_boxes(robot, refine):
+    """The table kernel's [P_pad, 8] per-patch boxes, which K1's first pass
+    culls each pair by, bit-equal to the plain build (`_patch_boxes` of the
+    patches' spheres, zero columns 6-7 and padding rows), a view of the
+    build's one workspace."""
+    patches = (scenes.robot_lens_scene(res=1, refine=True, device="cuda").patches
+               if refine else robot.patches)
+    got = ct.build_tables(patches)
+    want = ct.build_tables_reference(patches)
+    torch.cuda.synchronize()
+    assert got.boxes.shape == (got.patch_t.shape[0], 8) and got.boxes.is_contiguous()
+    assert got.boxes.untyped_storage().data_ptr() == got.patch_t.untyped_storage().data_ptr()
+    assert torch.equal(got.boxes, want.boxes)

@@ -86,19 +86,21 @@ def test_workspace_plan(P, block_p):
     plan = ct._workspace_plan(P, block_p)
     P_pad = plan.P_pad
     assert P_pad % 128 == 0 and P <= P_pad < P + 128 and plan.block_p == block_p
-    sizes = (4 * 64 * P_pad, 4 * 12 * (P_pad // block_p), 4 * 3 * P_pad)
-    offsets = (plan.patch_t, plan.bounds, plan.nb)
+    sizes = (4 * 64 * P_pad, 4 * 12 * (P_pad // block_p), 4 * 3 * P_pad, 4 * 8 * P_pad)
+    offsets = (plan.patch_t, plan.bounds, plan.nb, plan.boxes)
     assert offsets[0] == 0 and all(o % 256 == 0 for o in offsets)
     for o, size, nxt in zip(offsets, sizes, (*offsets[1:], plan.nbytes)):
         assert o + size <= nxt < o + size + 256
     assert plan.nbytes % 256 == 0
     assert list(plan.as_c_array()) == [P_pad, *offsets, plan.nbytes]
-    assert ct.PLAN_FIELDS == ("P_pad", "patch_t", "bounds", "nb", "nbytes")
+    assert ct.PLAN_FIELDS == ("P_pad", "patch_t", "bounds", "nb", "boxes", "nbytes")
     ws = _aligned(plan.nbytes, lead=256)      # an aligned slice inside a larger storage
     assert ws.storage_offset() >= 256 and ws.data_ptr() % 256 == 0
     views = ct._views(ws, plan)
-    for v, dtype, shape, o in zip(views, (torch.float32, torch.float32, torch.int32),
-                                  ((P_pad, 64), (P_pad // block_p, 12), (P_pad, 3)), offsets):
+    for v, dtype, shape, o in zip(views, (torch.float32, torch.float32, torch.int32,
+                                          torch.float32),
+                                  ((P_pad, 64), (P_pad // block_p, 12), (P_pad, 3), (P_pad, 8)),
+                                  offsets, strict=True):
         assert v.dtype == dtype and tuple(v.shape) == shape and v.is_contiguous()
         assert v.data_ptr() - ws.data_ptr() == o
         assert v.untyped_storage().data_ptr() == ws.untyped_storage().data_ptr()
