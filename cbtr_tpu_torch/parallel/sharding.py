@@ -36,6 +36,7 @@ import torch.distributed as dist
 
 from ..models.lens_model import LensParams
 from ..render.render import render_lens_image
+from ..utils.profiling import span
 
 
 def mesh_device_type() -> str:
@@ -118,6 +119,7 @@ def sum_over(x, group):
     return x if group is None else _SumOver.apply(x, group)
 
 
+@span("cbtr.step")
 def sgd_step(params: LensParams, partial_image, target, learning_rate: float,
              group):
     """One SGD step on a ray-sharded image: partial_image(params) -> this
@@ -125,16 +127,22 @@ def sgd_step(params: LensParams, partial_image, target, learning_rate: float,
     `mean((img - target)^2)` is taken on the full image on every rank, and
     the gradients are summed over `group` before the update
     (p <- p - lr * grad, in place).  Returns (loss, (grad cp, grad n)); the
-    gradients stay in `.grad` as well."""
+    gradients stay in `.grad` as well.  The step is the span `cbtr.step`,
+    its image and loss `cbtr.step.forward`, then `.backward`, the gradients'
+    sum `.allreduce` (only where there is a group) and `.update`, the names
+    of `models/lens_model.py`'s steps (`utils.profiling`)."""
     params.zero_grad(set_to_none=True)
-    img = sum_over(partial_image(params), group)
-    loss = torch.mean((img - target) ** 2)
-    loss.backward()
+    with span("cbtr.step.forward"):
+        img = sum_over(partial_image(params), group)
+        loss = torch.mean((img - target) ** 2)
+    with span("cbtr.step.backward"):
+        loss.backward()
     grads = (params.control_points.grad, params.refractive_index.grad)
     if group is not None:
-        for g in grads:
-            dist.all_reduce(g, group=group)
-    with torch.no_grad():
+        with span("cbtr.step.allreduce"):
+            for g in grads:
+                dist.all_reduce(g, group=group)
+    with span("cbtr.step.update"), torch.no_grad():
         for p, g in zip((params.control_points, params.refractive_index), grads):
             p -= learning_rate * g
     return loss.detach(), grads

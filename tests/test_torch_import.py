@@ -146,3 +146,24 @@ def test_entry_declares_argtypes_once_and_refuses_others(monkeypatch):
     with pytest.raises(TypeError, match="cbtr_stub"):
         cuda_lib.entry("stub", "cbtr_stub", [ctypes.c_void_p, ctypes.c_long])
     assert fn.argtypes == args
+
+
+_REFERENCE_SCRIPT = r"""
+import sys
+import portbench.reference.chunked
+tops = {m.split(".")[0] for m in sys.modules}
+assert not tops & {"jax", "jaxlib", "flax", "cbtr_tpu", "cbtr_tpu_torch"}, sorted(tops)
+print("REFERENCE_OK")
+"""
+
+
+def test_chunked_reference_imports_neither_jax_nor_the_port():
+    """The benchmark's float64 reference of the data-parallel SGD step
+    (`portbench/reference/chunked.py`) is plain torch: importing it loads
+    neither JAX, the JAX package nor the port."""
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=repo)
+    proc = subprocess.run([sys.executable, "-c", _REFERENCE_SCRIPT], capture_output=True,
+                          text=True, timeout=120, cwd=repo, env=env)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "REFERENCE_OK" in proc.stdout

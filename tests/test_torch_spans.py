@@ -284,3 +284,69 @@ def test_every_switch_leaves_a_step_bit_equal(scene, optimizer, chunk_size):
         image_on = _render(scene)
     assert all(torch.equal(a, b) for a, b in zip(off, on))
     assert torch.equal(image, image_on)
+
+
+STEP_PHASES = ("cbtr.step", "cbtr.step.forward", "cbtr.step.backward", "cbtr.step.update")
+
+
+def _sgd_step(scene, group=None):
+    """One data-parallel SGD step (`parallel/sharding.py::sgd_step`, on the
+    path of `parallel/multihost.py`'s steps) from the scene's lens, in two
+    chunks: (loss, image, grads, new parameters)."""
+    from cbtr_tpu_torch.parallel import sharding
+
+    params = lens_model.params_from_scene(scene)
+    images = []
+
+    def partial_image(p):
+        img = p(scene.start, scene.direction, scene.screen_plane, resolution=RES,
+                chunk_size=RES * RES // 2)
+        images.append(img.detach().clone())
+        return img
+
+    loss, (g_cp, g_n) = sharding.sgd_step(params, partial_image, _target(), 1e-4, group)
+    return (loss, images[0], g_cp.clone(), g_n.clone(), params.control_points.detach().clone(),
+            params.refractive_index.detach().clone())
+
+
+def test_timing_of_an_sgd_step_counts_each_phase_once(scene, monkeypatch):
+    """The step of `make_multihost_train_step_ortho(None, ...)`: one span
+    each of `cbtr.step` and its forward, backward and update, the render
+    inside the forward; no all-reduce on a group of one.  With a group the
+    gradients' all-reduce is `cbtr.step.allreduce` (a stand-in group whose
+    collectives leave their tensors as they are)."""
+    from cbtr_tpu_torch.parallel import multihost
+    from cbtr_tpu_torch.render.camera import OrthoGrid
+
+    grid = OrthoGrid(center=(0.0, 0.0, 0.0), direction=(1.0, 0.0, 0.0), up=(0.0, 0.0, 1.0),
+                     width=1.6, height=1.6, res_x=RES, res_y=RES)
+    step = multihost.make_multihost_train_step_ortho(
+        None, scene.screen_plane, _target(), grid, resolution=RES, learning_rate=1e-4,
+        chunk_size=RES * RES // 2)
+    params = lens_model.params_from_scene(scene)
+    with profiling.timing() as times:
+        step(params)
+    assert {name: times[name][1] for name in STEP_PHASES} == dict.fromkeys(STEP_PHASES, 1)
+    assert "cbtr.step.allreduce" not in times and times["cbtr.render"][1] == 1
+    assert times["cbtr.step"][0] >= times["cbtr.step.forward"][0] + times[
+        "cbtr.step.backward"][0] + times["cbtr.step.update"][0]
+
+    reduced = []
+    monkeypatch.setattr(torch.distributed, "all_reduce",
+                        lambda t, group=None: reduced.append(tuple(t.shape)))
+    with profiling.timing() as times:
+        _sgd_step(scene, group=object())
+    assert {name: times[name][1] for name in STEP_PHASES + ("cbtr.step.allreduce",)} == \
+        dict.fromkeys(STEP_PHASES + ("cbtr.step.allreduce",), 1)
+    # the image's sum in the forward, then the two gradients in the span
+    assert reduced == [(RES, RES), (scene.patches.num_patches, 10, 3), ()]
+
+
+def test_every_switch_leaves_an_sgd_step_bit_equal(scene):
+    """Loss, image, gradients and the updated parameters of the data-parallel
+    SGD step with spans, timing and counting on against all off."""
+    off = _sgd_step(scene)
+    with profiling.spans_on(), profiling.timing(), profiling.counting():
+        on = _sgd_step(scene)
+    assert all(torch.equal(a, b) for a, b in zip(off, on))
+    assert off[2].abs().max() > 0
