@@ -107,6 +107,17 @@
 // retry candidate's distance is bit-identical to the one pass 1 would have
 // seen.
 //
+// The second refraction (optics/lens.py trace_through_lens) hands K1 a prior:
+// which rays the first refraction left alive, and K1's first answer for
+// every ray.  A dead ray leaves that refraction exactly as it entered it, so
+// a tile none of whose 128 rays is alive holds the rays of the first search,
+// bit for bit, and K1's answer for a tile is a function of its rays and the
+// tables alone: such a tile writes the prior's answer for its rays and
+// exits before it touches shared memory (most tiles of a beam or a fan: the
+// rays that miss the lens).  A tile with any live ray runs in full, its dead
+// rays included, since they take part in the tile's cull and unit gates,
+// which decide the live rays' retries.
+//
 // Arithmetic: csrc/candidate.cuh (shared with K2 and K3); the tile's cull:
 // csrc/block_walk.cuh (shared with K2 and K3).  What only K1 uses is here.
 
@@ -178,6 +189,32 @@ __device__ __forceinline__ bool patch_box_hit(const float4& a, const float4& b,
   return (t_far >= 0.0f) && (t_near <= t_far);
 }
 
+// A tile the first refraction left with no live ray: the prior's answer
+// (padding rays past R read a miss) and a count of 0 blocks; true for such a
+// tile, which then does nothing else.  Every thread of the CTA calls it.  Out
+// of line, so that the kernel's registers stay as they are without a prior.
+__device__ __noinline__ bool reused_prior(const bool* __restrict__ live,
+                                          const int* __restrict__ prior_win,
+                                          const float* __restrict__ prior_dist,
+                                          float* __restrict__ dist_out,
+                                          int* __restrict__ idx_out,
+                                          int* __restrict__ counts_out,
+                                          int* __restrict__ reuse_out, int R) {
+  const bool first = threadIdx.x < TILE_R;
+  const int ray = blockIdx.x * TILE_R + threadIdx.x % TILE_R;
+  const bool any_live = __syncthreads_or(first && ray < R && live[ray]) != 0;
+  if (reuse_out != nullptr && threadIdx.x == 0) {
+    // (tiles that reused the prior, tiles launched with one)
+    if (!any_live) atomicAdd(reuse_out, 1);
+    atomicAdd(reuse_out + 1, 1);
+  }
+  if (any_live) return false;
+  if (first) dist_out[ray] = ray < R ? prior_dist[ray] : BIG_F;
+  else idx_out[ray] = ray < R ? prior_win[ray] : 0;
+  if (threadIdx.x == 0) counts_out[blockIdx.x] = 0;
+  return true;
+}
+
 // shared memory (smem_bytes): keys [TILE_R] u64 | stage [BATCH_ROWS]
 // [ROW_STRIDE] f32 | sray [N_SRAY][TILE_R] f32 | the cull's bounds chunk |
 // slot_patch [BATCH_ROWS] i32 | listed [B] i32 | n_list [2] i32 | the cull's
@@ -190,12 +227,19 @@ sweep_select_kernel(const float* __restrict__ rays,
                     const float* __restrict__ patch_t,
                     const float* __restrict__ boxes,
                     const float* __restrict__ bounds,
-                    const int* __restrict__ nb, float* __restrict__ dist_out,
+                    const int* __restrict__ nb, const bool* __restrict__ live,
+                    const int* __restrict__ prior_win,
+                    const float* __restrict__ prior_dist, float* __restrict__ dist_out,
                     int* __restrict__ idx_out, int* __restrict__ counts_out,
                     int* __restrict__ lists_out, int* __restrict__ pairs_out,
-                    int T, int P, int P_pad, int block_p, int use_aabb,
-                    Params prm) {
+                    int* __restrict__ reuse_out, int R, int T, int P, int P_pad,
+                    int block_p, int use_aabb, Params prm) {
   using M = SweepMath<MODE>;
+
+  if (live != nullptr && reused_prior(live, prior_win, prior_dist, dist_out, idx_out,
+                                      counts_out, reuse_out, R))
+    return;
+
   extern __shared__ __align__(16) unsigned char smem[];
   const int B = P_pad / block_p;
   const int WB = (B + 31) / 32;
@@ -430,10 +474,15 @@ extern "C" int cbtr_sweep_select_occupancy(int P_pad, int block_p, int mode,
 // mode: the sweep's arithmetic (SweepMath); half_gate: 0 or 1, at an even
 // block_p; any other value is refused (cudaErrorInvalidValue)
 // boxes: the [P_pad, 8] per-patch box table (cuda_sweep.patch_box_table)
+// live, prior_win, prior_dist: the prior of R rays (bool, i32, f32), or
+// three nulls; reuse_out: null, or two ints the launch adds its reused and
+// its prior-launched tiles to
 extern "C" int cbtr_sweep_select(const void* rays, const void* patch_t,
                                  const void* boxes, const void* bounds, const void* nb,
-                                 void* dist_out, void* idx_out, void* counts_out,
-                                 void* lists_out, void* pairs_out, int T, int P,
+                                 const void* live, const void* prior_win,
+                                 const void* prior_dist, void* dist_out, void* idx_out,
+                                 void* counts_out, void* lists_out, void* pairs_out,
+                                 void* reuse_out, int R, int T, int P,
                                  int P_pad, int block_p, int use_aabb, int iters,
                                  float ray_plane_eps, float estimation_eps,
                                  float max_ray_dist, float minimal_ray_distance,
@@ -451,8 +500,10 @@ extern "C" int cbtr_sweep_select(const void* rays, const void* patch_t,
   kernel<<<T, K1_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(rays), static_cast<const float*>(patch_t),
       static_cast<const float*>(boxes), static_cast<const float*>(bounds), static_cast<const int*>(nb),
-      static_cast<float*>(dist_out), static_cast<int*>(idx_out),
-      static_cast<int*>(counts_out), static_cast<int*>(lists_out),
-      static_cast<int*>(pairs_out), T, P, P_pad, block_p, use_aabb, prm);
+      static_cast<const bool*>(live), static_cast<const int*>(prior_win),
+      static_cast<const float*>(prior_dist), static_cast<float*>(dist_out),
+      static_cast<int*>(idx_out), static_cast<int*>(counts_out),
+      static_cast<int*>(lists_out), static_cast<int*>(pairs_out),
+      static_cast<int*>(reuse_out), R, T, P, P_pad, block_p, use_aabb, prm);
   return static_cast<int>(cudaGetLastError());
 }

@@ -40,6 +40,15 @@ config.bf16_sweep, read at every call by the kernel and the twin alike),
 and `half_gate` (each half of a listed block behind its own sphere gate,
 `gated_pairs`; block_p >= 16, as the JAX package takes it).
 
+A second search over rays that a first one left mostly as they were (the
+second refraction of `optics.lens.trace_through_lens`) may take a prior
+(`intersect.WinnerPrior`: which rays are alive, the first search's answers):
+a 128-ray tile with no live ray returns the prior's answer, which is the
+one it would compute, since its rays are the first search's and the answer
+is a function of the tile's rays and the tables alone; every other tile is
+searched in full (`sweep_select`, `launch`, `sweep_select_reference` alike;
+`reuse_counts` counts the tiles).
+
 `sweep_select` launches csrc/sweep_select.cu for CUDA tensors and calls
 `sweep_select_reference` for CPU tensors; it never falls back from one to
 the other.  The kernels are built with nvcc at first use and launched
@@ -334,7 +343,8 @@ def box_hit_pairs(boxes, rays_t):
 
 def sweep_select_reference(patches: BezierPatches, start, direction,
                            cull: bool = True, use_aabb: bool = True,
-                           block_p: int = BLOCK_P, half_gate: bool = False):
+                           block_p: int = BLOCK_P, half_gate: bool = False,
+                           prior=None):
     """Plain PyTorch version of K1: (any_hit [R], win [R] i32, win_dist [R]).
 
     cull=True computes the kernel's function: per-pair `_candidates_core`
@@ -346,12 +356,17 @@ def sweep_select_reference(patches: BezierPatches, start, direction,
     pass evaluates (`evaluated_pairs`), which give the same winners.
     cull=False is exact `sweep_codes` followed by `select_candidates` over
     every pair (the JAX package's XLA path, which no mode reaches).  Rays
-    are processed in chunks of _REFERENCE_CHUNK_R."""
+    are processed in chunks of _REFERENCE_CHUNK_R.  prior: as in
+    `sweep_select` (`with_prior`): the tiles with a live ray are searched,
+    the others return it."""
     R = start.shape[0]
     P = patches.num_patches
     start = start.to(torch.float32)
     direction = direction.to(torch.float32)
     check_half_gate(half_gate, block_p, cull)
+    if prior is not None:
+        return with_prior(lambda s, d: sweep_select_reference(
+            patches, s, d, cull, use_aabb, block_p, half_gate), start, direction, prior)
     if not cull:
         outs = [
             ix.select_candidates(
@@ -383,6 +398,40 @@ def sweep_select_reference(patches: BezierPatches, start, direction,
         code = torch.where(keep, code, ix.WHAT_NONE)
         outs.append(ix.select_candidates(code, dist, patches.neighbours))
     return tuple(torch.cat(o)[:R] for o in zip(*outs))
+
+
+def check_prior(prior, R: int, device) -> None:
+    """Raise unless `prior` (an `intersect.WinnerPrior`) holds R rays: live
+    flags (bool), winners (i32) and distances (f32), contiguous, on
+    `device`."""
+    for t, name, dtype in ((prior.live, "live", torch.bool), (prior.win, "win", torch.int32),
+                           (prior.dist, "dist", torch.float32)):
+        cuda_lib.check_tensor(t, f"prior.{name}", dtype, (R,), device)
+
+
+def with_prior(search, start, direction, prior):
+    """K1's answer with a prior, in plain tensor ops: `search(start,
+    direction)` -> (any_hit, win, dist) on the rays of the 128-ray tiles
+    that hold a live ray, taken whole and in order (so each keeps its
+    tile), and the prior's win and dist on every other ray; under
+    `profiling.counting()` the reused and the searched tiles counted as K1
+    counts them (`reuse_counts`)."""
+    R = start.shape[0]
+    check_prior(prior, R, start.device)
+    T = -(-R // TILE_R)
+    live = torch.zeros(T * TILE_R, dtype=torch.bool, device=start.device)
+    live[:R] = prior.live
+    tiles = torch.nonzero(live.reshape(T, TILE_R).any(dim=1))[:, 0]
+    rays = (tiles[:, None] * TILE_R
+            + torch.arange(TILE_R, device=start.device)[None, :]).reshape(-1)
+    rays = rays[rays < R]
+    win, dist = prior.win.clone(), prior.dist.clone()
+    if rays.numel():
+        _, win[rays], dist[rays] = search(start[rays], direction[rays])
+    if profiling.counting_enabled():
+        _add_reuse(torch.tensor([T - tiles.shape[0], T], dtype=torch.int64,
+                                device=start.device))
+    return dist < _BIG_F * 0.5, win, dist
 
 
 def listed_blocks(counts, lists, P_pad: int, block_p: int = BLOCK_P):
@@ -439,13 +488,14 @@ def evaluated_pairs(listed, sphere, box, block_p: int = BLOCK_P):
 # the kernel: launch
 # ---------------------------------------------------------------------------
 
-# cbtr_sweep_select's and cbtr_winner's parameters: 9 pointers (K1 10: the
-# boxes after the patch table), T, P, P_pad, block_p, use_aabb, iterations,
-# 4 tolerances, clamp_secant, the mode (`intersect.SweepMode.code`), K1's
-# half_gate, the stream
+# cbtr_sweep_select's and cbtr_winner's parameters: 9 pointers (K1 14: the
+# boxes after the patch table, the prior's three after the neighbours, the
+# reuse counter last; then R, the prior's rays), T, P, P_pad, block_p,
+# use_aabb, iterations, 4 tolerances, clamp_secant, the mode
+# (`intersect.SweepMode.code`), K1's half_gate, the stream
 _ARGS = [ctypes.c_int] * 6 + [ctypes.c_float] * 4 + [ctypes.c_int] * 2
-_ENTRY_ARGTYPES = {"sweep_select": [ctypes.c_void_p] * 10 + _ARGS + [ctypes.c_int,
-                                                                     ctypes.c_void_p],
+_ENTRY_ARGTYPES = {"sweep_select": [ctypes.c_void_p] * 14 + [ctypes.c_int] + _ARGS
+                   + [ctypes.c_int, ctypes.c_void_p],
                    "winner": [ctypes.c_void_p] * 9 + _ARGS + [ctypes.c_void_p]}
 
 
@@ -559,22 +609,35 @@ def check_inputs(inputs: KernelInputs, kernel: str):
 
 
 def launch_kernel(stem: str, inputs: KernelInputs, lists: bool = False,
-                  pairs: bool = False, half_gate: bool = False) -> KernelOutputs:
+                  pairs: bool = False, half_gate: bool = False,
+                  prior=None) -> KernelOutputs:
     """One launch of K1 (stem "sweep_select") or K2 ("winner") on the current
     stream over tables from `prepare_inputs`, in the mode config asks for
     (`intersect.sweep_mode()`).  lists / pairs also fill the per-tile lists
     and pair counts (for checks; the main path asks for neither); half_gate
-    is K1's option (`gated_pairs`).  `cuda_lib.call` launches and
-    counts it (as "sweep_select" or "winner"); while `profiling.counting()`
-    is on it fills the pair counts whether asked or not and adds them to
-    the kernel's accumulator on the device (`pair_counts`)."""
+    and prior (an `intersect.WinnerPrior` of the first R rays, R within the
+    last tile: a tile with no live ray writes its answer, counts 0 blocks
+    and 0 pairs, and its padding rays read a miss) are K1's options.
+    `cuda_lib.call` launches and counts it (as "sweep_select" or "winner");
+    while `profiling.counting()` is on it fills the pair counts whether
+    asked or not and adds them to the kernel's accumulator on the device
+    (`pair_counts`), and K1 its reused and prior-launched tiles to
+    `reuse_counts`' accumulator."""
     T, P_pad = check_inputs(inputs, "K1" if stem == "sweep_select" else "K2")
-    if half_gate and stem != "sweep_select":
-        raise ValueError("half_gate is K1's option")
+    k1 = stem == "sweep_select"
+    if (half_gate or prior is not None) and not k1:
+        raise ValueError("half_gate and the prior are K1's options")
     check_half_gate(half_gate, inputs.block_p)
     device, R_pad, B = inputs.rays_t.device, T * TILE_R, P_pad // inputs.block_p
+    R = R_pad if prior is None else prior.live.shape[0]
+    if prior is not None:
+        if -(-R // TILE_R) != T:
+            raise ValueError(f"a prior of {R} rays for a launch of {T} tiles")
+        check_prior(prior, R, device)
     counted = profiling.counting_enabled()
     pairs = pairs or counted
+    reuse = torch.zeros(2, dtype=torch.int32, device=device) \
+        if counted and prior is not None else None
     out = KernelOutputs(
         dist=torch.empty(R_pad, dtype=torch.float32, device=device),
         win=torch.empty(R_pad, dtype=torch.int32, device=device),
@@ -582,16 +645,17 @@ def launch_kernel(stem: str, inputs: KernelInputs, lists: bool = False,
         lists=torch.full((B, T), -1, dtype=torch.int32, device=device) if lists else None,
         pairs=torch.zeros((T, 2), dtype=torch.int32, device=device) if pairs else None)
 
-    k1 = stem == "sweep_select"
     options = (ix.sweep_mode().code,) + ((int(half_gate),) if k1 else ())
+    given = (None,) * 3 if prior is None else tuple(t.data_ptr() for t in prior)
     cuda_lib.call(
         stem, _ENTRY_ARGTYPES[stem], device,
         inputs.rays_t.data_ptr(), inputs.patch_t.data_ptr(),
         *((inputs.boxes.data_ptr(),) if k1 else ()),
-        inputs.bounds.data_ptr(), inputs.nb.data_ptr(),
+        inputs.bounds.data_ptr(), inputs.nb.data_ptr(), *(given if k1 else ()),
         out.dist.data_ptr(), out.win.data_ptr(), out.counts.data_ptr(),
         out.lists.data_ptr() if lists else None,
         out.pairs.data_ptr() if pairs else None,
+        *((None if reuse is None else reuse.data_ptr(), R) if k1 else ()),
         T, inputs.num_patches, P_pad, inputs.block_p, int(inputs.use_aabb),
         int(CFG.root_search_iterations),
         CFG.ray_plane_intersection_epsilon,
@@ -603,20 +667,22 @@ def launch_kernel(stem: str, inputs: KernelInputs, lists: bool = False,
     )
     if counted:
         _add_pairs(stem, out.pairs.sum(dim=0, dtype=torch.int64))
+        if reuse is not None:
+            _add_reuse(reuse.to(torch.int64))
     return out
 
 
 def launch(inputs: KernelInputs, lists: bool = False, pairs: bool = False,
-           half_gate: bool = False) -> KernelOutputs:
+           half_gate: bool = False, prior=None) -> KernelOutputs:
     """One launch of K1 (`launch_kernel`); at most _FUSED_MAX_P patches."""
     if inputs.num_patches > _FUSED_MAX_P:
         raise ValueError(f"K1 takes at most {_FUSED_MAX_P} patches, got "
                          f"{inputs.num_patches}")
-    return launch_kernel("sweep_select", inputs, lists, pairs, half_gate)
+    return launch_kernel("sweep_select", inputs, lists, pairs, half_gate, prior)
 
 
 def sweep_select(patches: BezierPatches, start, direction, use_aabb: bool = True,
-                 tables=None, half_gate: bool = False):
+                 tables=None, half_gate: bool = False, prior=None):
     """K1 wrapper: (any_hit [R] bool, win [R] i32, win_dist [R] f32).
 
     CPU tensors go to `sweep_select_reference` (cull=True); CUDA tensors
@@ -625,17 +691,21 @@ def sweep_select(patches: BezierPatches, start, direction, use_aabb: bool = True
     half_gate as in `gated_pairs` (off on every path of the port);
     tables: the patches' `cuda_tables.PatchTables` at BLOCK_P, where the
     caller built them (`prepare_inputs` builds them otherwise; the twin
-    checks them and builds its own).  There is no fallback between the two:
-    a build or launch failure raises, and so does P > _FUSED_MAX_P on the
-    GPU (`intersect_rays` sends that range to K2, cuda_winner.sweep_winner)."""
+    checks them and builds its own); prior: an `intersect.WinnerPrior` of
+    these R rays, or None (the module's docstring).  There is no fallback
+    between the two: a build or launch failure raises, and so does P >
+    _FUSED_MAX_P on the GPU (`intersect_rays` sends that range to K2,
+    cuda_winner.sweep_winner)."""
+    R = start.shape[0]
+    if prior is not None:
+        check_prior(prior, R, start.device)
     if not start.is_cuda:
         if tables is not None:
             check_tables(tables, patches, BLOCK_P, False)
         return sweep_select_reference(patches, start, direction, use_aabb=use_aabb,
-                                      half_gate=half_gate)
+                                      half_gate=half_gate, prior=prior)
     out = launch(prepare_inputs(patches, start, direction, use_aabb, tables=tables),
-                 half_gate=half_gate)
-    R = start.shape[0]
+                 half_gate=half_gate, prior=prior)
     best = out.dist[:R]
     return best < _BIG_F * 0.5, out.win[:R], best
 
@@ -643,6 +713,9 @@ def sweep_select(patches: BezierPatches, start, direction, use_aabb: bool = True
 # K1's and K2's pass-1 pairs and retries, int64 [2] on the device, added
 # while `profiling.counting()` is on (`pair_counts`); None: none counted
 _counted = dict.fromkeys(("sweep_select", "winner"))
+# K1's tiles that returned the prior and tiles launched with one, int64 [2]
+# on the device, added while `profiling.counting()` is on (`reuse_counts`)
+_reused = None
 
 
 def _add_pairs(stem: str, pairs) -> None:
@@ -671,6 +744,23 @@ def pair_counts() -> dict:
             for stem, p in _counted.items()}
 
 
+def _add_reuse(tiles) -> None:
+    """Add int64 [2] (tiles reused, tiles launched with a prior) to K1's
+    reuse accumulator, on its device, reading nothing back."""
+    global _reused
+    _reused = tiles.clone() if _reused is None else _reused.add_(tiles)
+
+
+def reuse_counts() -> tuple:
+    """(tiles that returned the prior, tiles launched with one) by K1 and its
+    twin while `profiling.counting()` was on since the last
+    `reset_pair_counts`, read once; (0, 0) where none was."""
+    return (0, 0) if _reused is None else tuple(int(x) for x in _reused.tolist())
+
+
 def reset_pair_counts() -> None:
+    """Clear the pair counters and K1's reuse counter."""
+    global _reused
     for stem in _counted:
         _counted[stem] = None
+    _reused = None

@@ -36,6 +36,7 @@ gradient hygiene, kept bit for bit).
 from __future__ import annotations
 
 import contextlib
+import contextvars
 from typing import NamedTuple
 
 import torch
@@ -70,6 +71,19 @@ class RayHit(NamedTuple):
     bary: torch.Tensor           # [..., 3]
     cos_incidence: torch.Tensor  # [...] dot(ray dir, normal)
     patch: torch.Tensor          # [...] i32 winning patch (or -1)
+
+
+class WinnerPrior(NamedTuple):
+    """What a second winner search over rays that a first one left mostly as
+    they were may reuse of the first (K1's prior, `cuda_sweep.sweep_select`):
+    which rays are alive, i.e. may have changed since, and the first
+    search's answers.  A dead ray must be the first search's ray, bit for
+    bit (`optics.lens.refract_rays` leaves a dead ray's start and direction
+    as they were)."""
+
+    live: torch.Tensor   # [R] bool
+    win: torch.Tensor    # [R] i32, the first search's winner
+    dist: torch.Tensor   # [R] f32, its distance (BIG on a miss)
 
 
 class SweepMode(NamedTuple):
@@ -474,6 +488,22 @@ def winner_tables(patches: BezierPatches, backend: str = "auto"):
                                         clamp=_winner_route(patches.num_patches)[2])
 
 
+# the chunk `intersect_rays` is searching: (its rays' `WinnerPrior` or
+# None, a list that takes K1's (win, dist) or None).  It rides beside the
+# call of `_winner_chunk`, whose arguments stay (patches, start, direction,
+# backend, tables) for the functions that wrap it.
+_CHUNK_PRIOR = contextvars.ContextVar("_CHUNK_PRIOR", default=(None, None))
+
+
+@contextlib.contextmanager
+def _chunk_prior(prior, winners):
+    token = _CHUNK_PRIOR.set((prior, winners))
+    try:
+        yield
+    finally:
+        _CHUNK_PRIOR.reset(token)
+
+
 @span("cbtr.winner_search")
 def _winner_chunk(patches: BezierPatches, start, direction, backend: str, tables=None):
     """Stages 1+2 (sweep + select) for a chunk of rays: the gradient-free
@@ -485,14 +515,21 @@ def _winner_chunk(patches: BezierPatches, start, direction, backend: str, tables
     "plain" forces the twin on any device, on tables of its own.  tables:
     `winner_tables(patches)` for backend "auto", built once by the caller
     for all its chunks (None: the kernel's `prepare_inputs` builds them for
-    this chunk)."""
-    wrapper, twin, _ = _winner_route(patches.num_patches)
+    this chunk).  On K1 with backend "auto", the chunk's prior
+    (`intersect_rays`' `prior`) goes to the wrapper, and its (win, dist)
+    to `intersect_rays`' `winners`; K2 and "plain" take neither."""
+    wrapper, twin, clamped = _winner_route(patches.num_patches)
+    prior, winners = _CHUNK_PRIOR.get() if backend != "plain" and not clamped else (None, None)
     with torch.no_grad():
         p, s, d = patches.detach(), start.detach(), direction.detach()
         if backend == "plain":
             any_hit, win, _ = twin(p, s, d)
+        elif prior is not None:
+            any_hit, win, dist = wrapper(p, s, d, tables=tables, prior=prior)
         else:
-            any_hit, win, _ = wrapper(p, s, d, tables=tables)
+            any_hit, win, dist = wrapper(p, s, d, tables=tables)
+        if winners is not None:
+            winners.append((win, dist))
     return any_hit, win
 
 
@@ -502,7 +539,8 @@ def _intersect_chunk(patches: BezierPatches, start, direction, backend: str, tab
 
 
 def intersect_rays(patches: BezierPatches, start, direction,
-                   chunk_size: int = 0, backend: str = "auto", tables=None) -> RayHit:
+                   chunk_size: int = 0, backend: str = "auto", tables=None,
+                   prior=None, winners=None) -> RayHit:
     """Intersect a batch of rays with the whole Bezier surface.
 
     start/direction: [..., 3].  chunk_size > 0 scans the ray axis in chunks
@@ -519,6 +557,10 @@ def intersect_rays(patches: BezierPatches, start, direction,
     tables: `winner_tables(patches, backend)` where the caller has them (a
     trace's two refractions share one build); otherwise they are built here
     once, before the chunk loop.
+    prior: a `WinnerPrior` of the R = prod([...]) rays, handed chunk by
+    chunk to K1 (`_winner_chunk`); winners: a list that receives K1's (win
+    [R] i32, dist [R] f32) over all rays, for such a prior (nothing on K2
+    or backend "plain").
     Returns a RayHit with leading shape [...].
     """
     if backend not in BACKENDS:
@@ -530,13 +572,21 @@ def intersect_rays(patches: BezierPatches, start, direction,
     if tables is None:
         tables = winner_tables(patches, backend)
 
+    found = [] if winners is not None else None
+
+    def searching(r0, r1):
+        """The chunk [r0, r1)'s prior and K1's list, beside its search."""
+        return _chunk_prior(None if prior is None else WinnerPrior(*(t[r0:r1] for t in prior)),
+                            found)
+
     if chunk_size and R > chunk_size:
         values = (patches.detach().packed_f32()
                   if cuda_recompute.on_kernels(patches.control_points, backend) else None)
         chunks = []
         for r0 in range(0, R, chunk_size):
             sc, dc = s[r0:r0 + chunk_size], d[r0:r0 + chunk_size]
-            ah, w = _winner_chunk(patches, sc, dc, backend, tables=tables)
+            with searching(r0, r0 + chunk_size):
+                ah, w = _winner_chunk(patches, sc, dc, backend, tables=tables)
             if values is not None:
                 chunks.append(recompute_winner(patches, sc, dc, ah, w, backend=backend,
                                                values=values))
@@ -545,5 +595,9 @@ def intersect_rays(patches: BezierPatches, start, direction,
                                          backend, use_reentrant=False))
         hit = RayHit(*(torch.cat(fields, dim=0) for fields in zip(*chunks)))
     else:
-        hit = _intersect_chunk(patches, s, d, backend, tables=tables)
+        with searching(0, R):
+            hit = _intersect_chunk(patches, s, d, backend, tables=tables)
+    if found:
+        winners.append(found[0] if len(found) == 1
+                       else tuple(torch.cat(x) for x in zip(*found)))
     return RayHit(*(x.reshape(batch_shape + x.shape[1:]) for x in hit))

@@ -15,7 +15,7 @@ import torch
 
 from .. import geom
 from ..config import DEFAULT as CFG
-from ..ops.intersect import WHAT_INTERSECT, intersect_rays, winner_tables
+from ..ops.intersect import WHAT_INTERSECT, WinnerPrior, intersect_rays, winner_tables
 from ..utils.profiling import backward_span, span
 
 REFRACT_NONE = 0
@@ -40,7 +40,7 @@ def _index_pair(refractive_index, device):
 @backward_span("cbtr.backward.refract")
 def refract_rays(patches, refractive_index, start, direction, expected,
                  chunk_size: int = 0, backend: str = "auto", intersect_fn=None,
-                 tables=None):
+                 tables=None, prior=None, winners=None):
     """Refract a ray batch at the lens surface.
 
     expected: int (REFRACT_INSIDE or REFRACT_OUTSIDE) or [...] i32 tensor.
@@ -57,10 +57,13 @@ def refract_rays(patches, refractive_index, start, direction, expected,
     tables: the winner kernel's tables of `patches`
     (`ops.intersect.winner_tables`) where the caller built them; otherwise
     `intersect_rays` builds them.  Unused with intersect_fn.
+
+    prior, winners: `intersect_rays`' (K1's prior for this search, a list
+    for K1's answers); unused with intersect_fn.
     """
     if intersect_fn is None:
         hit = intersect_rays(patches, start, direction, chunk_size=chunk_size,
-                             backend=backend, tables=tables)
+                             backend=backend, tables=tables, prior=prior, winners=winners)
     else:
         hit = intersect_fn(patches, start, direction)
     ok = hit.what == WHAT_INTERSECT
@@ -107,18 +110,24 @@ def trace_through_lens(patches, refractive_index, start, direction,
     illumination loop (reference/test.cpp:376-394).  intersect_fn: see
     `refract_rays`.  Both refractions meet the same patches, so the winner
     kernel's tables are built once here (`ops.intersect.winner_tables`)
-    and shared by both and by every chunk of each.
+    and shared by both and by every chunk of each.  A ray the first
+    refraction leaves dead enters the second as it entered the first, so
+    on K1 the second search takes the first's answers as its prior
+    (`ops.intersect.WinnerPrior`), and its tiles with no live ray return
+    them (`ops.cuda_sweep`).
 
     Returns (start, direction, alive_mask, entry_point, exit_point).
     """
     tables = None if intersect_fn is not None else winner_tables(patches, backend)
+    first = [] if intersect_fn is None else None
     s1, d1, st1 = refract_rays(
         patches, refractive_index, start, direction, REFRACT_INSIDE,
-        chunk_size, backend, intersect_fn, tables,
+        chunk_size, backend, intersect_fn, tables, winners=first,
     )
+    prior = WinnerPrior(st1.reshape(-1) == REFRACT_INSIDE, *first[0]) if first else None
     s2, d2, st2 = refract_rays(
         patches, refractive_index, s1, d1, REFRACT_OUTSIDE, chunk_size, backend,
-        intersect_fn, tables,
+        intersect_fn, tables, prior=prior,
     )
     alive = (st1 == REFRACT_INSIDE) & (st2 == REFRACT_OUTSIDE)
     return s2, d2, alive, s1, s2

@@ -267,6 +267,11 @@ Phases:
      refined or design step 2 forward and 2 backward; a 4K render 32
      forward; a 4K step 32 forward and 32 backward: no chunk is
      checkpointed on the kernels)
+  v  K1's second pass with the first pass's answers as its prior, at the
+     4K beam's and the car-lamp fan's chunks: with it against without it
+     on every ray, bit for bit, its reused tiles against the tiles with no
+     live ray, both timed in turns beside the first pass; the renders'
+     images and the headline step's loss and gradients with it and without
   u  the fit step's CUDA graph (`harness/step_graph.py`): on the headline
      (robot, 512^2, K1) and the refined robot (1024^2, K2), 6 Adam steps of
      `make_opt_train_step` (eager, capture, 4 replays) against an eager twin
@@ -1680,6 +1685,146 @@ def _scale_phase(dev, card):
             "k1_every_ray": every_ray}
 
 
+def _reuse_phase(dev, card):
+    """Phase v: K1's second pass with the first pass's answers as its prior
+    (`intersect.WinnerPrior`, handed on by `trace_through_lens`) at the 4K
+    beam's and the car-lamp fan's chunks (phase p's two renders): in each
+    second-pass chunk K1 with the prior against K1 without it on every ray
+    (winners and distances bit for bit), its reused tiles (`reuse_counts`)
+    against the tiles of the prior with no live ray, and both timed in
+    turns beside the first pass's K1; then each render's image, and the
+    headline step's loss and gradients, with the prior and with K1 made to
+    drop it, bit for bit.  Standalone: `import chip_smoke` and call
+    `_reuse_phase(device, card)`.  Returns {render: row}."""
+    import torch
+
+    from cbtr_tpu_torch.benchmarks import emitter4k
+    from cbtr_tpu_torch.harness.kernel_ab import time_ms
+    from cbtr_tpu_torch.models import lens_model, robot_lens_scene, scene_ortho_grid
+    from cbtr_tpu_torch.ops import cuda_sweep as cs
+    from cbtr_tpu_torch.ops import intersect as ix
+    from cbtr_tpu_torch.parallel.multihost import (
+        multihost_mesh,
+        render_multihost_emitter,
+        render_multihost_ortho,
+    )
+    from cbtr_tpu_torch.utils import profiling
+
+    n, chunk = 4096 * 4096, 1 << 20
+    sc = robot_lens_scene(res=1, device=dev)
+    mesh = multihost_mesh()
+    renders = {
+        "4096^2 grid": lambda: render_multihost_ortho(
+            mesh, sc.patches, sc.refractive_index, scene_ortho_grid(4096), sc.screen_plane,
+            resolution=1024, chunk_size=chunk),
+        "emitter": lambda: render_multihost_emitter(
+            mesh, sc.patches, sc.refractive_index, emitter4k.device_emitter(n),
+            sc.screen_plane, resolution=256, chunk_size=chunk),
+    }
+    search, wrapper = ix._winner_chunk, cs.sweep_select
+
+    def dropped(*args, prior=None, **kwargs):
+        return wrapper(*args, **kwargs)
+
+    def without_prior(fn):
+        cs.sweep_select = dropped
+        try:
+            return fn()
+        finally:
+            cs.sweep_select = wrapper
+
+    rows = {}
+    for label, render_fn in renders.items():
+        row = {"chunks": 0, "rays": 0, "differ": 0, "tiles": 0, "dead_tiles": 0,
+               "reused": 0, "launched": 0, "k1_pass1_ms": 0.0, "k1_pass2_ms_with": 0.0,
+               "k1_pass2_ms_without": 0.0}
+
+        def check(p, start, direction, *args, **kwargs):
+            prior, _ = ix._CHUNK_PRIOR.get()
+            result = search(p, start, direction, *args, **kwargs)
+            inputs = cs.prepare_inputs(p, start, direction, tables=kwargs.get("tables"))
+            if prior is None:
+                row["k1_pass1_ms"] += time_ms(lambda: cs.launch(inputs), windows=3, inner=1,
+                                              warmup=1)
+                return result
+            R = start.shape[0]
+            cs.reset_pair_counts()
+            with profiling.counting():
+                got = cs.launch(inputs, prior=prior)
+            reused, launched = cs.reuse_counts()
+            cs.reset_pair_counts()
+            want = cs.launch(inputs)
+            T = -(-R // cs.TILE_R)
+            live = torch.zeros(T * cs.TILE_R, dtype=torch.bool, device=start.device)
+            live[:R] = prior.live
+            dead = int((~live.reshape(T, cs.TILE_R).any(dim=1)).sum())
+            differ = int(((got.win[:R] != want.win[:R])
+                          | (got.dist[:R].view(torch.int32) != want.dist[:R].view(torch.int32)))
+                         .sum())
+            assert differ == 0 and (reused, launched) == (dead, T), \
+                (label, row["chunks"], differ, reused, launched, dead, T)
+            ms = {True: [], False: []}
+            for with_ in (True, False, False, True):
+                ms[with_].append(time_ms(lambda: cs.launch(inputs, prior=prior if with_ else None),
+                                         windows=3, inner=1, warmup=1))
+            for key, value in (("chunks", 1), ("rays", R), ("differ", differ), ("tiles", T),
+                               ("dead_tiles", dead), ("reused", reused),
+                               ("launched", launched), ("k1_pass2_ms_with", min(ms[True])),
+                               ("k1_pass2_ms_without", min(ms[False]))):
+                row[key] += value
+            return result
+
+        ix._winner_chunk = check
+        try:
+            with torch.no_grad():
+                render_fn()
+        finally:
+            ix._winner_chunk = search
+        with torch.no_grad():
+            image = render_fn()
+            image_without = without_prior(render_fn)
+        row["image_equal"] = bool(torch.equal(image, image_without))
+        row["image_sum"] = float(image.sum())
+        assert row["chunks"] == -(-n // chunk) and row["rays"] == n, (label, row)
+        assert row["image_equal"] and row["image_sum"] > 0, (label, row)
+        rows[label] = row
+        print(f"[v] {card} | K1 pass 2 with the prior, {label}: {row['rays']} rays in "
+              f"{row['chunks']} chunks, {row['differ']} rays differ from K1 without it; "
+              f"tiles reused {row['reused']} of {row['launched']} "
+              f"({row['reused'] / row['launched']:.4f}; dead by the first statuses "
+              f"{row['dead_tiles']}); K1 a render: pass 1 {row['k1_pass1_ms']:.3f} ms, pass 2 "
+              f"{row['k1_pass2_ms_with']:.3f} ms with the prior, "
+              f"{row['k1_pass2_ms_without']:.3f} ms without; images equal: "
+              f"{row['image_equal']}", flush=True)
+
+    head = robot_lens_scene(res=512, device=dev)
+    target = torch.rand((128, 128), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(26))
+
+    def step():
+        params = lens_model.params_from_scene(head)
+        loss = lens_model.lens_loss(params, head.start, head.direction, head.screen_plane,
+                                    target)
+        loss.backward()
+        return loss.detach(), params.control_points.grad, params.refractive_index.grad
+
+    cs.reset_pair_counts()
+    with profiling.counting():
+        got = step()
+    reused, launched = cs.reuse_counts()
+    cs.reset_pair_counts()
+    want = without_prior(step)
+    equal = [bool(torch.equal(a, b)) for a, b in zip(got, want)]
+    print(f"[v] {card} | headline step (512^2 rays) with the prior against without: loss, "
+          f"control-point and index gradients equal {equal}; tiles reused {reused} of "
+          f"{launched}", flush=True)
+    assert all(equal) and 0 < reused < launched, (equal, reused, launched)
+    rows["headline step"] = {"equal": equal, "reused": reused, "launched": launched}
+    del sc, head
+    torch.cuda.empty_cache()
+    return rows
+
+
 # the shape of the main path's segment sum (the headline step's recompute
 # backward), whose times go into the kernel line
 _SEG_MAIN = "headline recompute 262,144 x 60 -> 450"
@@ -3027,6 +3172,12 @@ def main(argv=None) -> int:
     scale_out = _scale_phase(dev, card)
     print(f"[p] took {time.perf_counter() - t:.1f} s", flush=True)
 
+    # ---- v: K1's second pass on the first pass's answers --------------------------
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    reuse_rows = _reuse_phase(dev, card)
+    print(f"[v] took {time.perf_counter() - t:.1f} s", flush=True)
+
     # ---- s: the segment-sum kernel against its plain version ------------------------
     t = time.perf_counter()
     seg_rows = _segment_phase(dev, card, scene, k1_win)
@@ -3110,6 +3261,7 @@ def main(argv=None) -> int:
             "kernel_only_ms": k1_launch_ms,
             "second_pass_ms": k1_2_ms,
             "second_pass_bound_ms": k1_bound_2[0],
+            "second_pass_prior": reuse_rows,
             "modes": mode_rows["sweep_select"],
             "build": {k: v for k, v in sweep_build.items() if k.startswith("sweep_select")},
         },
